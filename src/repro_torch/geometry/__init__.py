@@ -1,0 +1,7 @@
+"""Geometries of the port (Stiefel, Euclidean) behind the registry in ``base``."""
+from repro_torch.geometry import euclidean, stiefel  # noqa: F401  (register)
+from repro_torch.geometry.base import (REGISTRY, Manifold, as_manifold_map,
+                                       check_retraction_name, get, register)
+
+__all__ = ["REGISTRY", "Manifold", "as_manifold_map", "check_retraction_name",
+           "get", "register"]

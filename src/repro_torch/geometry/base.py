@@ -1,0 +1,160 @@
+"""Manifold protocol + registry: the pluggable geometry layer of the port.
+
+Mirrors ``src/repro/geometry/base.py``.  Every geometry works on tensors
+whose *last two* dims are the matrix dims (d, r); leading dims (the node
+axis) broadcast:
+
+  * ``tangent_project(x, g)``: orthogonal projection of ambient ``g`` onto
+    T_x M;
+  * ``retract(x, u, kind=..., **kw)``: map a tangent step back onto M;
+  * ``project(a)``: nearest point of M;
+  * ``consensus_mean(xs)``: induced arithmetic mean over the leading node
+    axis (paper Eq. 9: project the Euclidean mean);
+  * ``dist(x, y)``, ``rand(d, r, generator=...)``, ``check(x)``.
+
+Optimizer hooks: ``consensus_step`` (``alpha * P_x(mx)``), the DRGDA
+x-update ``descent_update``, ``feasible_init`` and ``resolve_retraction``.
+
+Geometries register under a name; :func:`as_manifold_map` turns a tree of
+names (or instances) into Manifold instances.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.tree import tree_map
+
+Tensor = torch.Tensor
+Tree = Any
+
+
+class Manifold:
+    """Base class: shared defaults for the protocol (see module docstring)."""
+
+    #: registry name
+    name: str = "abstract"
+    #: retraction kinds ``retract`` accepts
+    retractions: tuple[str, ...] = ()
+    #: used when ``kind`` is None or names a retraction this geometry does
+    #: not implement (one config string drives every leaf)
+    default_retraction: str = ""
+    #: name of the fused-kernel retraction, or None.  A fused retraction
+    #: takes the *ambient* update direction and projects inside the kernel.
+    fused_retraction: Optional[str] = None
+
+    # -- protocol ----------------------------------------------------------
+    def tangent_project(self, x: Tensor, g: Tensor) -> Tensor:
+        raise NotImplementedError
+
+    def retract(self, x: Tensor, u: Tensor, kind: Optional[str] = None,
+                **kw) -> Tensor:
+        raise NotImplementedError
+
+    def project(self, a: Tensor, method: str = "ns") -> Tensor:
+        raise NotImplementedError
+
+    def consensus_mean(self, xs: Tensor, method: str = "ns") -> Tensor:
+        """IAM over the leading axis (Eq. 9): project( mean_i xs_i )."""
+        return self.project(xs.mean(0), method=method)
+
+    def dist(self, x: Tensor, y: Tensor) -> Tensor:
+        raise NotImplementedError
+
+    def rand(self, d: int, r: int, batch: tuple[int, ...] = (), *,
+             generator: torch.Generator, device) -> Tensor:
+        raise NotImplementedError
+
+    def check(self, x: Tensor) -> Tensor:
+        """Feasibility residual, 0 on the manifold (batched over leading
+        dims)."""
+        raise NotImplementedError
+
+    # -- optimizer hooks ---------------------------------------------------
+    def resolve_retraction(self, kind: Optional[str]) -> str:
+        """Map a (possibly foreign) retraction name onto one this geometry
+        implements."""
+        if kind in self.retractions:
+            return kind
+        return self.default_retraction
+
+    def consensus_step(self, x: Tensor, mx: Tensor, alpha: float) -> Tensor:
+        """Tangent consensus direction of the DRGDA x-update (Alg. 1
+        step 4): ``alpha * P_x([W^k x]_i)``."""
+        return alpha * self.tangent_project(x, mx)
+
+    def descent_update(self, x: Tensor, mx: Tensor, u: Tensor, *,
+                       alpha: float, beta: float,
+                       kind: Optional[str] = None, **kw) -> Tensor:
+        """One DRGDA x-update on this leaf:
+        ``R_x( alpha P_x(mx) - beta P_x(u) )``."""
+        cons = self.consensus_step(x, mx, alpha)
+        w = self.tangent_project(x, u)
+        return self.retract(x, cons - beta * w, kind, **kw)
+
+    def feasible_init(self, x: Tensor) -> Tensor:
+        """Map raw initializer output to a feasible starting point."""
+        return self.project(x)
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+REGISTRY: dict[str, Manifold] = {}
+
+# retractions of the JAX package that this port has not brought over yet
+_NOT_PORTED = {"cayley": "the Cayley retraction is not ported yet; use "
+                         "'polar', 'polar_fused' or 'qr'"}
+
+
+def register(manifold: Manifold) -> Manifold:
+    """Register a (stateless, shared) manifold instance under its name."""
+    REGISTRY[manifold.name] = manifold
+    return manifold
+
+
+def get(name: str) -> Manifold:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown manifold {name!r}; registered: {sorted(REGISTRY)}"
+        ) from None
+
+
+def known_retractions() -> set[str]:
+    """Union of retraction names over all registered geometries."""
+    return {k for m in REGISTRY.values() for k in m.retractions}
+
+
+def check_retraction_name(kind: str) -> str:
+    """Raise on a retraction name NO registered geometry implements (per-leaf
+    resolution falls back silently, so a typo would measure each leaf's
+    default)."""
+    if kind in _NOT_PORTED:
+        raise ValueError(f"retraction {kind!r}: {_NOT_PORTED[kind]}")
+    known = known_retractions()
+    if kind not in known:
+        raise ValueError(
+            f"unknown retraction {kind!r}; known: {sorted(known)}")
+    return kind
+
+
+def _as_manifold(spec) -> Manifold:
+    if isinstance(spec, Manifold):
+        return spec
+    if isinstance(spec, str):
+        return get(spec)
+    raise TypeError(f"cannot interpret {spec!r} as a manifold")
+
+
+def as_manifold_map(spec_tree: Tree) -> Tree:
+    """Normalize a per-leaf geometry spec tree (registry names or Manifold
+    instances) to Manifold instances."""
+    return tree_map(_as_manifold, spec_tree,
+                    is_leaf=lambda s: isinstance(s, Manifold))

@@ -1,0 +1,145 @@
+"""Public wrappers of the port's kernels, dispatched by tensor device.
+
+  * a tensor on the CPU      -> the plain PyTorch version in ``ref.py``;
+  * a tensor on a CUDA card  -> the hand-written CUDA kernel, or an error.
+
+There is no environment switch and no fallback: a CUDA tensor the kernel
+does not take (another dtype, too many nodes) raises, and so does any
+other device.  The wrappers own the operand checks, flattening and
+contiguity, as the JAX package's ``kernels/ops.py`` does; the kernel
+modules only allocate, launch and count (:func:`launch_counts`).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import multi_hop_mix as _mh
+from repro_torch.kernels import ref
+from repro_torch.kernels import retract as _rt
+from repro_torch.kernels import ring_mix as _rm
+from repro_torch.kernels import stiefel_project as _sp
+
+Tensor = torch.Tensor
+
+_KERNELS = {"stiefel_project": _sp, "fused_retract": _rt, "ring_mix": _rm,
+            "multi_hop_mix": _mh}
+_MAX_GRID_YZ = 65535      # CUDA's limit on grid.y / grid.z
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0
+
+
+def _on_card(name: str, *ts: Tensor) -> bool:
+    """False for CPU operands (plain version), True for fp32 CUDA operands
+    (kernel); raises for anything else."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: operands on different devices "
+                         f"{[str(t.device) for t in ts]}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
+                            f"{t.dtype}")
+    return True
+
+
+def _batched(name: str, x: Tensor, g: Tensor) -> tuple[int, int, int]:
+    """(batch, d, r) of matching (..., d, r) operands."""
+    if x.shape != g.shape or x.ndim < 2:
+        raise ValueError(f"{name}: want matching (..., d, r) operands, got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    d, r = x.shape[-2:]
+    batch = math.prod(x.shape[:-2])
+    if min(batch, d, r) < 1 or batch > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: unsupported shape {tuple(x.shape)}")
+    return batch, d, r
+
+
+# ---------------------------------------------------------------------------
+# Stiefel tangent projection
+# ---------------------------------------------------------------------------
+
+
+def stiefel_project(x: Tensor, g: Tensor) -> Tensor:
+    """P_{T_x}(g) = g - x sym(x^T g) over the last two dims; leading dims
+    (the node axis) are batched."""
+    batch, d, r = _batched("stiefel_project", x, g)
+    if not _on_card("stiefel_project", x, g):
+        return ref.stiefel_project_ref(x, g)
+    out = _sp.launch(x.reshape(batch, d, r).contiguous(),
+                     g.reshape(batch, d, r).contiguous())
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# fused polar retraction
+# ---------------------------------------------------------------------------
+
+
+def fused_retract(x: Tensor, g: Tensor, *,
+                  ns_iters: int = _rt.DEFAULT_NS_ITERS) -> Tensor:
+    """R_x(P_{T_x}(g)) over the last two dims; leading dims (the node axis)
+    are batched.  ``g`` is the AMBIENT update direction: the tangent
+    projection happens inside the kernel.  The kernel's Gram identity needs
+    ``x`` on the manifold (x^T x = I)."""
+    batch, d, r = _batched("fused_retract", x, g)
+    if ns_iters < 0:
+        raise ValueError(f"fused_retract: ns_iters={ns_iters} < 0")
+    if not _on_card("fused_retract", x, g):
+        return ref.fused_retract_ref(x, g, ns_iters=ns_iters)
+    out = _rt.launch(x.reshape(batch, d, r).contiguous(),
+                     g.reshape(batch, d, r).contiguous(), ns_iters)
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# ring mixes of a node-stacked leaf (node axis 0, neighbours mod n)
+# ---------------------------------------------------------------------------
+
+
+def _nodes(name: str, x: Tensor) -> tuple[int, int]:
+    if x.ndim < 1 or x.numel() < 1 or x.shape[0] > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: want a node-stacked leaf (n, ...), got "
+                         f"{tuple(x.shape)}")
+    return x.shape[0], x.numel() // x.shape[0]
+
+
+def ring_mix(x: Tensor, *, w_self: float, w_side: float) -> Tensor:
+    """One ring hop ``wc*x[i] + ws*(x[i-1] + x[i+1])`` of a node-stacked
+    leaf, neighbours wrapped mod n."""
+    n, f = _nodes("ring_mix", x)
+    if not _on_card("ring_mix", x):
+        return ref.ring_mix_ref(x, x.roll(1, 0), x.roll(-1, 0),
+                                w_self, w_side)
+    return _rm.launch(x.reshape(n, f).contiguous(), w_self,
+                      w_side).reshape(x.shape)
+
+
+def multi_hop_mix(x: Tensor, *, hops: int, w_self: float,
+                  w_side: float) -> Tensor:
+    """``hops`` ring hops of a node-stacked leaf in one launch; bitwise
+    ``hops`` repeated :func:`ring_mix` calls.  The plain version is the
+    JAX package's halo-panel oracle on the wrapped panel."""
+    n, f = _nodes("multi_hop_mix", x)
+    if hops < 1:
+        raise ValueError(f"multi_hop_mix: hops={hops} < 1")
+    if not _on_card("multi_hop_mix", x):
+        out = ref.multi_hop_mix_ref(ref.ring_panel(x, hops), hops=hops,
+                                    out_rows=n, halo=hops, w_self=w_self,
+                                    w_side=w_side)
+        return out.reshape(x.shape)
+    return _mh.launch(x.reshape(n, f).contiguous(), hops, w_self,
+                      w_side).reshape(x.shape)

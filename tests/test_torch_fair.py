@@ -1,0 +1,200 @@
+"""The port's fair-classification objective, optimizer and entry point
+against the JAX package, with the same weights (``repro_torch.convert``)
+and the same NumPy batches.
+
+Tolerances: the objective, its gradients and y* to 1e-5 (fp32 convolutions
+and products summed in another order); the DRGDA/DRSGDA trajectories over
+10 steps to 1e-5 per step in loss and in every parameter, and 1e-5 relative
+in the final M_t.  Measured differences are a few 1e-7: the two packages
+round the same fp32 operations in different orders, and 10 steps of the
+method do not amplify that past 1e-6.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import OPTIMIZERS as J_OPTIMIZERS  # noqa: E402
+from repro.core import gda as jgda  # noqa: E402
+from repro.core.gossip import GossipSpec as JSpec  # noqa: E402
+from repro.core.metric import convergence_metric as j_metric  # noqa: E402
+from repro.data.synthetic import ClassificationStream as JStream  # noqa: E402
+from repro.objectives import fair as jfair  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import gda as tgda  # noqa: E402
+from repro_torch.core.gossip import GossipSpec  # noqa: E402
+from repro_torch.core.metric import convergence_metric  # noqa: E402
+from repro_torch.data.synthetic import ClassificationStream  # noqa: E402
+from repro_torch.launch.fair import run_method  # noqa: E402
+from repro_torch.objectives import fair  # noqa: E402
+
+N, HW, FC = 4, 8, 16
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _jbatch(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+@pytest.fixture(autouse=True)
+def _no_tuned_configs(monkeypatch):
+    # the JAX package's tune cache may set other ns_iters for
+    # fused_retract; hold both packages to the default 20 iterations
+    monkeypatch.setenv("REPRO_TUNE", "off")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = jfair.init_cnn(jax.random.PRNGKey(0), image_hw=HW, fc=FC)
+    stream = JStream(n_nodes=N, batch_per_node=8, image_hw=HW, seed=0)
+    return params, stream
+
+
+def test_stream_is_the_reference_stream():
+    a = ClassificationStream(n_nodes=5, batch_per_node=6, image_hw=7, seed=3)
+    b = JStream(n_nodes=5, batch_per_node=6, image_hw=7, seed=3)
+    for got, want in [(a.batch(2), b.batch(2)), (a.full(3), b.full(3))]:
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_convert_round_trip(setup):
+    params, _ = setup
+    stacked = jgda.broadcast_to_nodes(params, 3)
+    for tree in (params, stacked):
+        back = convert.params_to_reference(
+            convert.params_from_reference(tree, "cpu"))
+        for k in tree:
+            np.testing.assert_array_equal(back[k], np.asarray(tree[k]))
+    port = convert.params_from_reference(params, "cpu")
+    assert port["conv2"].shape == (16, 8, 3, 3)       # OIHW
+
+
+def test_objective_grads_and_y_star(setup):
+    params, stream = setup
+    b = stream.batch(1)
+    node = {k: v[0] for k, v in b.items()}
+    u = np.array([0.2, 0.5, 0.3], np.float32)
+    tp = convert.params_from_reference(params, "cpu")
+    tb = convert.batch_to_torch(node, "cpu")
+    jp = fair.make_fair_problem(tp)
+    jref = jfair.make_fair_problem(params)
+
+    np.testing.assert_allclose(
+        _np(fair.cnn_forward(tp, tb["images"])),
+        np.asarray(jax.jit(jfair.cnn_forward)(params,
+                                              jnp.asarray(node["images"]))),
+        atol=1e-5)
+    np.testing.assert_allclose(
+        float(jp.value(tp, torch.from_numpy(u), tb)),
+        float(jax.jit(jref.value)(params, jnp.asarray(u), _jbatch(node))),
+        atol=1e-5)
+    tgx, tgy = jp.rgrads(tp, torch.from_numpy(u), tb)
+    jgx, jgy = jax.jit(jref.rgrads)(params, jnp.asarray(u), _jbatch(node))
+    tgx = convert.params_to_reference(tgx)
+    for k in jgx:
+        np.testing.assert_allclose(tgx[k], np.asarray(jgx[k]), atol=1e-5)
+    np.testing.assert_allclose(_np(tgy), np.asarray(jgy), atol=1e-5)
+    np.testing.assert_allclose(
+        _np(jp.y_star(tp, convert.batch_to_torch(b, "cpu"))),
+        np.asarray(jax.jit(jref.y_star)(params, _jbatch(b))), atol=1e-5)
+
+    dp, dref = fair.make_dro_problem(tp), jfair.make_dro_problem(params)
+    np.testing.assert_allclose(
+        float(dp.value(tp, torch.from_numpy(u), tb)),
+        float(jax.jit(dref.value)(params, jnp.asarray(u), _jbatch(node))),
+        atol=1e-5)
+    np.testing.assert_allclose(
+        _np(dp.y_star(tp, convert.batch_to_torch(b, "cpu"))),
+        np.asarray(jax.jit(dref.y_star)(params, _jbatch(b))), atol=1e-5)
+
+
+def test_convergence_metric(setup):
+    params, stream = setup
+    rng = np.random.default_rng(0)
+    x = {k: np.asarray(v) + 0.01 * rng.normal(size=v.shape).astype(np.float32)
+         for k, v in jgda.broadcast_to_nodes(params, N).items()}
+    from repro.geometry import get as jget
+    for k in ("fc1", "head"):   # back onto the manifold, node by node
+        x[k] = np.asarray(jget("stiefel").feasible_init(jnp.asarray(x[k])))
+    y = rng.dirichlet(np.ones(3), size=N).astype(np.float32)
+    full = stream.full(2)
+    want = jax.jit(functools.partial(j_metric, jfair.make_fair_problem(params)))(
+        {k: jnp.asarray(v) for k, v in x.items()}, jnp.asarray(y),
+        _jbatch(full))
+    tx = convert.params_from_reference(x, "cpu")
+    got = convergence_metric(fair.make_fair_problem(tx), tx,
+                             torch.from_numpy(y),
+                             convert.batch_to_torch(full, "cpu"))
+    for key in ("M_t", "grad_norm", "consensus_x", "dist_y_star"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   rtol=1e-5, atol=1e-6)
+    assert float(got["stiefel_residual"]) < 1e-5
+
+
+@pytest.mark.parametrize("method", ["drgda", "drsgda"])
+@pytest.mark.parametrize("retraction", ["polar", "polar_fused"])
+def test_trajectory_matches_reference(setup, method, retraction):
+    params, stream = setup
+    det = method == "drgda"
+    k = 1 if det else 3
+    hyper = dict(alpha=0.5, beta=0.05, eta=0.2, retraction=retraction)
+    jprob, tprob = jfair.make_fair_problem(params), fair.make_fair_problem({})
+    jopt = J_OPTIMIZERS[method](jprob, JSpec(n_nodes=N, k_steps=k),
+                                jgda.GDAHyper(**hyper))
+    topt = tgda.OPTIMIZERS[method](tprob, GossipSpec(n_nodes=N, k_steps=k),
+                                   tgda.GDAHyper(**hyper))
+    x0 = jgda.broadcast_to_nodes(params, N)
+    full = stream.full(2)
+    b0 = full if det else stream.batch(0)
+    js = jopt.init(x0, jnp.full((N, 3), 1.0 / 3.0), _jbatch(b0))
+    ts = topt.init(convert.params_from_reference(x0, "cpu"),
+                   torch.full((N, 3), 1.0 / 3.0),
+                   convert.batch_to_torch(b0, "cpu"))
+    step = jax.jit(jopt.step)
+    for t in range(10):
+        b = full if det else stream.batch(t + 1)
+        js, jm = step(js, _jbatch(b))
+        ts, tm = topt.step(ts, convert.batch_to_torch(b, "cpu"))
+        assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5, t
+        tx = convert.params_to_reference(ts.x)
+        for key in tx:
+            np.testing.assert_allclose(tx[key], np.asarray(js.x[key]),
+                                       atol=1e-5)
+        np.testing.assert_allclose(_np(ts.y), np.asarray(js.y), atol=1e-5)
+    want = float(jax.jit(functools.partial(j_metric, jprob))(
+        js.x, js.y, _jbatch(full))["M_t"])
+    got = float(convergence_metric(tprob, ts.x, ts.y,
+                                   convert.batch_to_torch(full, "cpu"))["M_t"])
+    assert abs(got - want) <= 1e-5 * want
+
+
+def test_run_method_on_the_cpu():
+    res = run_method("drsgda", 5, False, image_hw=8, n_nodes=4, k_steps=None,
+                     eval_every=2, device="cpu")
+    assert res["k"] == GossipSpec(n_nodes=4).k
+    # step 1, every eval_every-th step, and always the last step
+    assert [p["step"] for p in res["curve"]] == [1, 2, 4, 5]
+    for p in res["curve"]:
+        assert np.isfinite([p["loss"], p["M_t"]]).all()
+        assert p["stiefel_residual"] < 1e-4
+    with pytest.raises(ValueError, match="ported"):
+        run_method("gt-gda", 1, True, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        run_method("drgda", 1, True, retraction="cayley", device="cpu")
+
+
+def test_run_method_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_method("drgda", 1, True, image_hw=8, n_nodes=3)
