@@ -5,24 +5,32 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and turns TF32 off for matmuls and cuDNN.
-2. Builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. Builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time.
 3. Kernel phase: every kernel against its plain PyTorch version on the card,
    at the shapes one main-path step gives it and at stress shapes, with its
-   gate: bitwise for the ring mixes, <= 5e-5 absolute for fused_retract,
-   <= 1e-5 relative for stiefel_project.  Times from CUDA events (median
-   after warm-up) beside the least time the card could take, and for the
-   ring mixes beside one ``torch.matmul`` by W^k (the library call that
-   computes the same function, up to rounding).  An fp64 operand must
-   raise, not fall back.
-4. Main path: DRGDA (full batch, polar_fused) and DRSGDA (minibatch) through
-   ``repro_torch.launch.fair.run_method`` on the paper's 20-node ring with
-   k = 1 and 28x28 images, 30 steps each, then DRGDA at the Theorem-1
-   k = 67 for 5 steps; losses finite, Stiefel residual <= 1e-4, every
-   kernel launched.  Then a profile of the DRGDA k = 1 step (wall time,
-   device time and busy share, the kernels that take the most), and a
-   small DRGDA run on the card against the same run on the CPU (plain
-   versions).
+   gate: bitwise for the ring mixes (fp32 and int8), <= 5e-5 absolute for
+   fused_retract, <= 1e-5 relative for stiefel_project.  Times from CUDA
+   events (median after warm-up) beside the least time the card could take,
+   and for the fp32 ring mixes beside one ``torch.matmul`` by W^k (the
+   library call that computes the same function, up to rounding; no single
+   PyTorch call computes the int8 ones).  A CUDA operand of another dtype
+   must raise, not fall back.
+4. Main path, two paths, each with the launch counts set to 0 just before
+   it and read just after:
+   * full precision: DRGDA (full batch, polar_fused) and DRSGDA (minibatch)
+     through ``repro_torch.launch.fair.run_method`` on the paper's 20-node
+     ring with k = 1 and 28x28 images, 30 steps each, then DRGDA at the
+     Theorem-1 k = 67 for 5 steps;
+   * EF-int8 gossip: DRGDA with ``CommSpec(compressor="int8", gamma=0.95)``
+     at k = 1 for 30 steps, the same with ``quant_hops="all"`` at k = 67
+     for 5 steps, and the 5%-drop channel at k = 1 for 10 steps;
+   losses finite, Stiefel residual <= 1e-4, every kernel of the path
+   launched (the int8 kernels exactly as often as the steps need).  Then a
+   profile of a DRGDA k = 1 step and of an EF-int8 k = 1 step (wall time,
+   device time and busy share, the kernels that take the most), and small
+   DRGDA runs on the card against the same runs on the CPU (plain
+   versions), full precision and EF-int8.
 5. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -31,6 +39,7 @@ line.  It needs a CUDA device and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -56,7 +65,16 @@ KERNEL_META = {
                  "src/repro/kernels/ring_mix.py:36"),
     "multi_hop_mix": ("src/repro_torch/kernels/csrc/multi_hop_mix.cu",
                       "src/repro/kernels/multi_hop_mix.py:117"),
+    "quant_mix": ("src/repro_torch/kernels/csrc/quant_mix.cu",
+                  "src/repro/kernels/quant_mix.py:46"),
+    "multi_hop_mix_quant": (
+        "src/repro_torch/kernels/csrc/multi_hop_mix_quant.cu",
+        "src/repro/kernels/multi_hop_mix.py:190"),
 }
+# the path each kernel belongs to (its launches in the table come from it)
+FULL_PATH = ("stiefel_project", "fused_retract", "ring_mix", "multi_hop_mix")
+INT8_PATH = ("stiefel_project", "fused_retract", "ring_mix", "quant_mix",
+             "multi_hop_mix_quant")
 
 # Main-path geometry: 20 nodes, 28x28x1 images, init_cnn's widths.
 N_NODES = 20
@@ -133,6 +151,18 @@ def _retract_cost(shape, ns_iters=20):
 def _mix_cost(shape, hops):
     n = math.prod(shape)
     return 4 * n * hops, 2 * n * 4
+
+
+def _quant_cost(shape, hops):
+    """Per element, hop 0: one dequantizing product (an element's decoded
+    value is shared by the three outputs that read it) and the 4-operation
+    combine, as :func:`_mix_cost` counts a hop; every later hop: a
+    division, a rounding, two clips, an absolute value and a max (the row
+    maxima), one product and the combine.  Bytes: the int8 payload and the
+    n scales read once, the fp32 result written once."""
+    n = math.prod(shape)
+    return (5 * n + 11 * n * (hops - 1),
+            n * 1 + shape[0] * 4 + n * 4)
 
 
 def kernel_phase(device="cuda") -> dict:
@@ -271,15 +301,85 @@ def kernel_phase(device="cuda") -> dict:
         raise AssertionError("multi_hop_mix differs from the panel oracle")
     log("  multi_hop_mix    bitwise equal to the halo-panel oracle (k=67)")
 
+    # -- the int8 ring mixes: payloads of quantize_det, one scale per row --
+    from repro_torch.comms.compress import quantize_det
+
+    def payload(x):
+        q, s = quantize_det(x)
+        return q.reshape(N_NODES, -1), s.reshape(N_NODES, 1)
+
+    def quant_plain(q, s):
+        return ref.quant_mix_ref(q, q.roll(1, 0), q.roll(-1, 0), s,
+                                 s.roll(1, 0), s.roll(-1, 0), wc, ws)
+
+    def quant_hops_plain(q, s, k):
+        return ref.multi_hop_mix_quant_ref(
+            ref.ring_panel(q, k), ref.ring_panel(s, k), hops=k, w_self=wc,
+            w_side=ws)[k:k + N_NODES]
+
+    # quant_mix: one EF-int8 step mixes x, u (4 leaves each), y and v
+    leaves = X_LEAVES * 2 + [Y_LEAF] * 2
+    qs = [payload(torch.randn(s, generator=gen, device=device))
+          for s in leaves]
+    rows["quant_mix"] = run_case(
+        "quant_mix",
+        [lambda q=q, s=s: ops.quant_mix(q, s, w_self=wc, w_side=ws)
+         for q, s in qs],
+        [lambda q=q, s=s: quant_plain(q, s) for q, s in qs], bitwise,
+        [_quant_cost(s, 1) for s in leaves], "main step 10 leaves")
+    qbig, sbig = payload(big)
+    run_case("quant_mix", [lambda: ops.quant_mix(qbig, sbig, w_self=wc,
+                                                 w_side=ws)],
+             [lambda: quant_plain(qbig, sbig)], bitwise,
+             [_quant_cost(big.shape, 1)], "stress (20, 1M)")
+
+    # multi_hop_mix_quant: the k = 67 step's tail of x, y and u (66 hops)
+    tail = K_THEOREM1 - 1
+    leaves = X_LEAVES * 2 + [Y_LEAF]
+    qs = [payload(torch.randn(s, generator=gen, device=device))
+          for s in leaves]
+    rows["multi_hop_mix_quant"] = run_case(
+        "multi_hop_mix_quant",
+        [lambda q=q, s=s: ops.multi_hop_mix_quant(q, s, hops=tail, w_self=wc,
+                                                  w_side=ws) for q, s in qs],
+        [lambda q=q, s=s: quant_hops_plain(q, s, tail) for q, s in qs],
+        bitwise, [_quant_cost(s, tail) for s in leaves],
+        f"main step {tail} hops, 9 leaves")
+    for k in (1, 3, tail):
+        run_case("multi_hop_mix_quant",
+                 [lambda k=k: ops.multi_hop_mix_quant(qbig, sbig, hops=k,
+                                                      w_self=wc, w_side=ws)],
+                 [lambda k=k: quant_hops_plain(qbig, sbig, k)], bitwise,
+                 [_quant_cost(big.shape, k)], f"stress (20, 1M) hops={k}")
+    # the JAX package's stacked schedule, hop by hop: quantize_det + one
+    # compressed hop, the same numbers as the one-launch schedule
+    z = big[:, :4096]
+    want = z
+    for _ in range(tail):
+        q, s = payload(want)
+        want = quant_plain(q, s)
+    q, s = payload(z)
+    if not torch.equal(ops.multi_hop_mix_quant(q, s, hops=tail, w_self=wc,
+                                               w_side=ws), want):
+        raise AssertionError("multi_hop_mix_quant differs from the hop-by-hop "
+                             "schedule")
+    log(f"  multi_hop_mix_quant bitwise equal to {tail} hops of quantize_det "
+        f"+ quant_mix")
+
     # -- a CUDA operand the kernel does not take raises --------------------
     for call in (lambda: ops.ring_mix(big.double(), w_self=wc, w_side=ws),
-                 lambda: ops.fused_retract(*(t.double() for t in pairs[0]))):
+                 lambda: ops.fused_retract(*(t.double() for t in pairs[0])),
+                 lambda: ops.quant_mix(qbig.float(), sbig, w_self=wc,
+                                       w_side=ws),
+                 lambda: ops.multi_hop_mix_quant(qbig, sbig.double(), hops=3,
+                                                 w_self=wc, w_side=ws)):
         try:
             call()
         except TypeError as exc:
-            log(f"  fp64 operand raises: {exc}")
+            log(f"  operand of another dtype raises: {exc}")
         else:
-            raise AssertionError("an fp64 CUDA operand did not raise")
+            raise AssertionError("a CUDA operand of another dtype did not "
+                                 "raise")
     torch.cuda.synchronize()
     return rows
 
@@ -289,107 +389,186 @@ def kernel_phase(device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def main_path_phase() -> dict:
-    """The port's main path through its entry point; returns the launch
-    counts of all its runs."""
+def _run_path(label: str, runs, kernels) -> dict:
+    """Drive ``runs`` through ``run_method`` with the launch counts set to 0
+    just before and read just after; every kernel in ``kernels`` must have
+    launched.  Returns the path's counts."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.fair import run_method
 
-    runs = (("drgda", 30, True, 1), ("drsgda", 30, False, 1),
-            ("drgda", 5, True, K_THEOREM1))
     ops.reset_launch_counts()
-    for name, steps, det, k in runs:
+    for name, steps, det, k, comm, expect in runs:
         before = ops.launch_counts()
         res = run_method(name, steps, det, image_hw=28, n_nodes=N_NODES,
                          k_steps=k, retraction="polar_fused",
-                         eval_every=10, device="cuda")
+                         eval_every=10, device="cuda", comm=comm)
         torch.cuda.synchronize()
         after = ops.launch_counts()
+        got = {n: after[n] - before[n] for n in after}
         last = res["curve"][-1]
-        log(f"  {name:7s} k={k:<3d} steps={steps:<3d} "
+        tag = f"{label} {name} k={k}"
+        log(f"  {tag:22s} steps={steps:<3d} "
             f"final loss={last['loss']:.6f} M_t={last['M_t']:.6f} "
             f"stiefel_residual={last['stiefel_residual']:.3e} "
             f"us_per_step={res['us_per_step']:.1f} "
-            f"launches={ {n: after[n] - before[n] for n in after} }")
+            f"x_bits/param={res['x_bits_per_param_per_mix']:.3f} "
+            f"launches={got}")
         for point in res["curve"]:
             if not all(math.isfinite(point[key]) for key in
                        ("loss", "M_t", "consensus_x", "stiefel_residual")):
-                raise AssertionError(f"{name} k={k}: non-finite {point}")
+                raise AssertionError(f"{tag}: non-finite {point}")
             if point["stiefel_residual"] > 1e-4:
-                raise AssertionError(f"{name} k={k}: Stiefel residual "
+                raise AssertionError(f"{tag}: Stiefel residual "
                                      f"{point['stiefel_residual']:.3e}")
+        for kernel, per_step in expect.items():
+            if got[kernel] != per_step * steps:
+                raise AssertionError(f"{tag}: {kernel} launched {got[kernel]} "
+                                     f"times, the steps need "
+                                     f"{per_step * steps}")
     counts = ops.launch_counts()
-    missing = [n for n, c in counts.items() if c == 0]
+    missing = [n for n in kernels if counts[n] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the {label} path: "
                              f"{missing}")
     return counts
 
 
+def main_path_phase() -> dict:
+    """The port's main paths through its entry point; returns each kernel's
+    launch count from the path it belongs to."""
+    from repro_torch.launch.fair import COMM_PRESETS
+
+    full = _run_path("full", (
+        ("drgda", 30, True, 1, None, {}),
+        ("drsgda", 30, False, 1, None, {}),
+        ("drgda", 5, True, K_THEOREM1, None, {})), FULL_PATH)
+    int8 = COMM_PRESETS["int8_ef"]
+    int8_all = dataclasses.replace(int8, quant_hops="all")
+    # per step: one compressed first hop for each of the 10 leaves of x, y,
+    # u and v; under quant_hops="all" at k > 1 one tail launch for each of
+    # the 9 leaves of x, y and u (v mixes with one hop)
+    ef = _run_path("int8", (
+        ("drgda", 30, True, 1, int8, {"quant_mix": 10,
+                                      "multi_hop_mix_quant": 0}),
+        ("drgda", 5, True, K_THEOREM1, int8_all,
+         {"quant_mix": 10, "multi_hop_mix_quant": 9}),
+        ("drgda", 10, True, 1, COMM_PRESETS["int8_ef_drop5"],
+         {"quant_mix": 0, "multi_hop_mix_quant": 0})), INT8_PATH)
+    return {name: (full if name in FULL_PATH else ef)[name]
+            for name in KERNEL_META}
+
+
 OWN_KERNELS = ("gram_partial_kernel", "sym_reduce_kernel", "apply_kernel",
-               "finalize_kernel", "ring_mix_kernel", "ring_hops_kernel")
+               "finalize_kernel", "ring_mix_kernel", "ring_hops_kernel",
+               "quant_mix_kernel", "quant_hops_kernel")
 
 
-def profile_phase(steps: int = 5) -> None:
-    """Where a DRGDA k=1 main-path step spends its time: the step's wall
-    time without the profiler, the device time of its kernels under
-    ``torch.profiler``, and the kernels that take the most."""
+def profile_phase(comms: dict, steps: int = 10) -> None:
+    """Where a DRGDA k=1 main-path step spends its time, for each
+    ``label: comm`` of ``comms``: the step's wall time (median of
+    synchronized steps, as ``run_method`` times them), the device time of
+    its kernels under ``torch.profiler``, and the kernels that take the
+    most.
+
+    Every wall time is taken before the first profiler session of the
+    process, the configurations interleaved; the walls after the sessions
+    are printed too, to show what a session leaves behind.
+    """
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.fair import prepare
 
-    run = prepare("drgda", True, image_hw=28, n_nodes=N_NODES, k_steps=1,
-                  device="cuda")
-    state = run.state
-    for _ in range(3):
-        state, _ = run.opt.step(state, run.full)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, _ = run.opt.step(state, run.full)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) / steps * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            state, _ = run.opt.step(state, run.full)
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
-    kernels = [(e.self_device_time_total / steps, e.count / steps, e.key)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    kernels.sort(reverse=True)
-    device_us = sum(k[0] for k in kernels)
-    launches = sum(k[1] for k in kernels)
-    own_us = sum(k[0] for k in kernels
-                 if any(name in k[2] for name in OWN_KERNELS))
-    log(f"  drgda k=1 step: {wall_us:.1f} us wall without the profiler; "
-        f"{device_us:.1f} us of device time in {launches:.0f} kernels "
-        f"(device busy {100 * device_us / wall_us:.1f}% of the wall); "
-        f"the port's CUDA kernels {own_us:.1f} us")
-    for us, count, key in kernels[:12]:
-        log(f"    {us:9.1f} us/step  x{count:4.0f}  {key[:100]}")
+    runs, states = {}, {}
+    for label, comm in comms.items():
+        runs[label] = prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
+                              k_steps=1, device="cuda", comm=comm)
+        states[label] = runs[label].state
+        for _ in range(3):
+            states[label], _ = runs[label].opt.step(states[label],
+                                                    runs[label].full)
+
+    def walls() -> dict:
+        step_us = {label: [] for label in comms}
+        for _ in range(2):
+            for label, run in runs.items():
+                for _ in range(steps // 2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    states[label], _ = run.opt.step(states[label], run.full)
+                    torch.cuda.synchronize()
+                    step_us[label].append((time.perf_counter() - t0) * 1e6)
+        return step_us
+
+    before = walls()
+    for label, run in runs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                states[label], _ = run.opt.step(states[label], run.full)
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op's self device time repeats the
+        # time of the kernels it launched
+        kernels = [(e.self_device_time_total / steps, e.count / steps, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        kernels.sort(reverse=True)
+        device_us = sum(k[0] for k in kernels)
+        launches = sum(k[1] for k in kernels)
+        own_us = sum(k[0] for k in kernels
+                     if any(name in k[2] for name in OWN_KERNELS))
+        step_us = before[label]
+        wall_us = statistics.median(step_us)
+        log(f"  {label} drgda k=1 step: {wall_us:.1f} us wall without the "
+            f"profiler (median of {steps} synchronized steps; min "
+            f"{min(step_us):.1f}, max {max(step_us):.1f}); "
+            f"{device_us:.1f} us of device time in {launches:.0f} kernels "
+            f"(device busy {100 * device_us / wall_us:.1f}% of the wall); "
+            f"the port's CUDA kernels {own_us:.1f} us")
+        for us, count, key in kernels[:12]:
+            log(f"    {us:9.1f} us/step  x{count:4.0f}  {key[:100]}")
+    after = walls()
+    log("  wall after the profiler sessions: " + ", ".join(
+        f"{label} {statistics.median(us):.1f} us" for label, us
+        in after.items()))
 
 
 def agreement_phase() -> None:
-    """A small DRGDA run on the card (kernels) against the same run on the
-    CPU (plain versions): per-step loss and final M_t."""
+    """Small DRGDA runs on the card (kernels) against the same runs on the
+    CPU (plain versions): per-step loss and final M_t.
+
+    Full precision: 1e-4 relative.  EF-int8 (k = 3, ``quant_hops="all"``):
+    both runs take one draw source that draws on the CPU, so they see the
+    same uniforms; but the card's convolutions round in another order (a
+    few 1e-7), which moves a stochastic rounding ``floor(x/scale + u)``
+    across an integer now and then, and error feedback carries that int8
+    step on.  So the two trajectories separate slowly, and are held to
+    1e-3 in loss and 5e-3 in M_t, relative where above 1 (the CPU tests
+    measure 1e-4 and 4e-4 between the port and the JAX package over 10
+    such steps)."""
+    from repro_torch.comms.compress import GeneratorDraws
+    from repro_torch.comms.spec import CommSpec
     from repro_torch.launch.fair import run_method
 
     kw = dict(image_hw=8, n_nodes=6, k_steps=3, eval_every=5)
-    gpu = run_method("drgda", 10, True, device="cuda", **kw)
-    cpu = run_method("drgda", 10, True, device="cpu", **kw)
-    for a, b in zip(gpu["curve"], cpu["curve"]):
-        for key in ("loss", "M_t"):
-            if abs(a[key] - b[key]) > 1e-4 * max(1.0, abs(b[key])):
-                raise AssertionError(f"card vs CPU at step {a['step']}: "
-                                     f"{key} {a[key]} vs {b[key]}")
-    log(f"  card vs CPU (n=6, 8x8, k=3, 10 steps): final M_t "
-        f"{gpu['final_M_t']:.6f} vs {cpu['final_M_t']:.6f}, "
-        f"loss {gpu['final_loss']:.6f} vs {cpu['final_loss']:.6f}")
+    comm = CommSpec(compressor="int8", gamma=0.95, quant_hops="all")
+    for label, extra, tols in (
+            ("full precision", {}, {"loss": 1e-4, "M_t": 1e-4}),
+            ("EF-int8 quant_hops=all",
+             dict(comm=comm, draws=GeneratorDraws(0, on_cpu=True)),
+             {"loss": 1e-3, "M_t": 5e-3})):
+        gpu, cpu = (run_method("drgda", 10, True, device=dev, **extra, **kw)
+                    for dev in ("cuda", "cpu"))
+        for a, b in zip(gpu["curve"], cpu["curve"]):
+            for key, tol in tols.items():
+                if abs(a[key] - b[key]) > tol * max(1.0, abs(b[key])):
+                    raise AssertionError(
+                        f"{label}: card vs CPU at step {a['step']}: {key} "
+                        f"{a[key]} vs {b[key]}")
+        log(f"  card vs CPU, {label} (n=6, 8x8, k=3, 10 steps): final M_t "
+            f"{gpu['final_M_t']:.6f} vs {cpu['final_M_t']:.6f}, "
+            f"loss {gpu['final_loss']:.6f} vs {cpu['final_loss']:.6f}")
 
 
 def main() -> int:
@@ -427,7 +606,8 @@ def main() -> int:
     log("main path:")
     counts = main_path_phase()
     log("profile:")
-    profile_phase()
+    from repro_torch.launch.fair import COMM_PRESETS
+    profile_phase({"full": None, "EF-int8": COMM_PRESETS["int8_ef"]})
     log("agreement:")
     agreement_phase()
 

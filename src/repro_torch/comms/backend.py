@@ -1,23 +1,30 @@
 """The stacked mix backend: node axis = axis 0 of every leaf, one card.
 
-Mirrors ``StackedBackend.mix`` of ``src/repro/comms/backend.py``.  Ring
-hops go through the port's kernels (``ops`` picks the CUDA kernel for a
-tensor on the card, the plain version on the CPU):
+Mirrors ``StackedBackend`` of ``src/repro/comms/backend.py``.  Ring hops go
+through the port's kernels (``ops`` picks the CUDA kernel for a tensor on
+the card, the plain version on the CPU):
 
-  * ``steps == 1`` -> one ``ring_mix`` launch per leaf;
-  * ``steps > 1``  -> one ``multi_hop_mix`` launch per leaf for all hops.
+  * ``mix`` with ``steps == 1``       -> one ``ring_mix`` launch per leaf;
+  * ``mix`` with ``steps > 1``        -> one ``multi_hop_mix`` launch per leaf;
+  * ``quant_ring_hop`` (int8 payload) -> one ``quant_mix`` launch;
+  * ``quant_ring_hops`` (all-hop int8) -> ``quantize_det``, then one
+    ``multi_hop_mix_quant`` launch for every hop.
 
-Both are bitwise the JAX package's ``mix_ring`` expression.  The two-node
-ring keeps its own expression (``gossip.mix_ring``), and dense topologies
-apply ``W^steps`` by einsum.
+The kernels read the ring neighbours by wrapped row index, so no rolled
+copies are made.  Each is bitwise the JAX package's stacked expression (the
+hop-by-hop ``quant_ring_hops`` included: every hop decodes the same int8
+values).  The two-node ring keeps its own fp32 expression
+(``gossip.mix_ring``), and dense topologies apply ``W^steps`` by einsum.
+There is no ``shard_map`` counterpart: on one card every node row is local.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.comms.compress import quantize_det
 from repro_torch.kernels import ops
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def dense_power(spec, steps: int) -> np.ndarray:
@@ -26,25 +33,41 @@ def dense_power(spec, steps: int) -> np.ndarray:
     return np.linalg.matrix_power(m, steps) if steps > 1 else m
 
 
+def ring_hops(tree, steps: int, self_weight: float):
+    """``steps`` exact ring hops of a node-stacked tree through the ring
+    kernels (the two-node ring keeps ``gossip.mix_ring``'s expression)."""
+    from repro_torch.core import gossip as G
+    if steps == 0:
+        return tree
+    wc = self_weight
+    ws = (1.0 - wc) / 2.0
+
+    def leaf(x):
+        if x.shape[0] <= 2:
+            return G.mix_ring(x, steps=steps, self_weight=wc)
+        if steps == 1:
+            return ops.ring_mix(x, w_self=wc, w_side=ws)
+        return ops.multi_hop_mix(x, hops=steps, w_self=wc, w_side=ws)
+
+    return tree_map(leaf, tree)
+
+
+def _weights(spec) -> tuple[float, float]:
+    wc = spec.self_weight
+    return wc, (1.0 - wc) / 2.0
+
+
 class StackedBackend:
     """Node axis = leaf axis 0 everywhere."""
 
+    name = "stacked"
+
     def mix(self, spec, tree, steps: int):
-        from repro_torch.core import gossip as G
+        """Exact ``x <- W^steps x`` over a node-stacked tree."""
         if spec.n_nodes == 1 or steps == 0:
             return tree
         if spec.topology == "ring":
-            if spec.n_nodes == 2:
-                return G.mix_ring(tree, steps=steps,
-                                  self_weight=spec.self_weight)
-            wc = spec.self_weight
-            ws = (1.0 - wc) / 2.0
-            if steps == 1:
-                return tree_map(
-                    lambda x: ops.ring_mix(x, w_self=wc, w_side=ws), tree)
-            return tree_map(
-                lambda x: ops.multi_hop_mix(x, hops=steps, w_self=wc,
-                                            w_side=ws), tree)
+            return ring_hops(tree, steps, spec.self_weight)
         ws_np = dense_power(spec, steps)
         return tree_map(
             lambda x: torch.einsum(
@@ -52,5 +75,74 @@ class StackedBackend:
                 torch.as_tensor(ws_np, dtype=x.dtype, device=x.device), x),
             tree)
 
+    def mix_hop(self, spec, tree):
+        """One exact ``W`` hop."""
+        return self.mix(spec, tree, steps=1)
+
+    def mix_channel(self, spec, channel, tree, rnd: int, key, steps: int):
+        """``steps`` hops through a :class:`~repro_torch.comms.channel.
+        ChannelModel` (link drops / stragglers / schedules)."""
+        return channel.mix(tree, rnd, key, steps=steps)
+
+    def quant_ring_hop(self, spec, q: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+        """Fused compressed ring hop on an int8 payload ``q`` (n, F) with
+        per-node scales (n, 1): ``wc*dq(q_i) + ws*(dq(q_{i-1}) +
+        dq(q_{i+1}))``, fp32."""
+        wc, ws = _weights(spec)
+        return ops.quant_mix(q, scale, w_self=wc, w_side=ws)
+
+    def quant_ring_hops(self, spec, x: torch.Tensor,
+                        steps: int) -> torch.Tensor:
+        """``steps`` ring hops of one node-stacked leaf where EVERY hop is
+        int8-compressed: each hop requantizes its input deterministically
+        and combines the decoded values.  Quantizing ``x`` here is the
+        first hop's requantization; the kernel runs all ``steps`` hops."""
+        if steps <= 0:
+            return x
+        n = x.shape[0]
+        q, s = quantize_det(x)
+        wc, ws = _weights(spec)
+        z = ops.multi_hop_mix_quant(q.reshape(n, -1), s.reshape(n, 1),
+                                    hops=steps, w_self=wc, w_side=ws)
+        return z.reshape(x.shape).to(x.dtype)
+
+    def est_hop_bytes(self, spec, tree) -> float:
+        """Estimated bytes moved between nodes by one exact hop."""
+        total = _tree_bytes(tree)
+        if spec.topology == "ring":
+            # every node row goes one slot in each direction
+            return 2.0 * total
+        # a dense mix reaches every other node
+        return float(spec.n_nodes - 1) * total
+
+    def est_quant_hop_bytes(self, spec, tree) -> float:
+        """Estimated bytes moved by one int8-compressed hop of the
+        ``quant_ring_hops`` schedule (int8 payload + f32 scale per row)."""
+        total = _quant_tree_bytes(tree)
+        if spec.topology == "ring":
+            return 2.0 * total
+        return float(spec.n_nodes - 1) * total
+
     def __repr__(self):
         return "StackedBackend()"
+
+
+def _tree_bytes(tree) -> float:
+    return float(sum(leaf.numel() * leaf.element_size()
+                     for leaf in tree_leaves(tree)))
+
+
+def _quant_tree_bytes(tree) -> float:
+    """Bytes of one int8-compressed copy: 1 B/element + one f32 scale per
+    node row (leaf axis 0)."""
+    return float(sum(leaf.numel() + leaf.shape[0] * 4
+                     for leaf in tree_leaves(tree)))
+
+
+_STACKED = StackedBackend()
+
+
+def resolve_backend(spec) -> StackedBackend:
+    """The backend a ``GossipSpec`` routes through: the stacked one."""
+    return _STACKED

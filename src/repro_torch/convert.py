@@ -3,13 +3,17 @@
 The JAX package keeps parameters as dicts of arrays with conv kernels in
 HWIO; the port keeps conv kernels in PyTorch's OIHW.  Node-stacked trees
 carry the node axis first in both.  Everything else (Stiefel leaves, y,
-batches) has the same layout in both packages.  Inputs are NumPy arrays
-(or anything ``numpy.asarray`` takes); this module imports no JAX.
+batches) has the same layout in both packages.  The comms engine's memory
+(``CommState`` hats, one tree per slot) converts the same way.  Inputs are
+NumPy arrays (or anything ``numpy.asarray`` takes); this module imports no
+JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.comms.layer import CommState
 
 # HWIO -> OIHW for one kernel, and with a leading node axis
 _TO_OIHW = {4: (3, 2, 0, 1), 5: (0, 4, 3, 1, 2)}
@@ -41,6 +45,40 @@ def params_to_reference(params: dict) -> dict:
             a = np.transpose(a, _TO_HWIO[a.ndim])
         out[name] = np.ascontiguousarray(a)
     return out
+
+
+def _slot_from_reference(tree, device):
+    if isinstance(tree, dict):
+        return params_from_reference(tree, device)
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+
+
+def _slot_to_reference(tree):
+    if isinstance(tree, dict):
+        return params_to_reference(tree)
+    return tree.detach().cpu().numpy()
+
+
+def comm_state_from_reference(hats: dict, deltas: dict | None, device):
+    """The JAX package's ``CommState`` memory (its ``hats`` and ``deltas``,
+    as NumPy) as the port's ``CommState``: per slot (x, y, u, v) a parameter
+    dict, conv kernels HWIO -> OIHW, or a plain array."""
+    return CommState(
+        hats={slot: _slot_from_reference(tree, device)
+              for slot, tree in hats.items()},
+        deltas=None if deltas is None else {
+            slot: torch.tensor(float(np.asarray(d)), dtype=torch.float32,
+                               device=device)
+            for slot, d in deltas.items()})
+
+
+def comm_state_to_reference(state) -> tuple[dict, dict | None]:
+    """The inverse of :func:`comm_state_from_reference`: (hats, deltas) as
+    NumPy arrays in the JAX package's layout."""
+    hats = {slot: _slot_to_reference(tree) for slot, tree in state.hats.items()}
+    deltas = None if state.deltas is None else {
+        slot: np.float32(d.item()) for slot, d in state.deltas.items()}
+    return hats, deltas
 
 
 def batch_to_torch(batch: dict, device) -> dict:

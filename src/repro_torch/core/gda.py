@@ -24,7 +24,10 @@ fresh minibatch (Alg. 2).  As in the JAX package:
 The per-node gradients come from ``torch.func.vmap`` over
 ``torch.func.grad_and_value``; the Stiefel projections then run once on the
 node-stacked gradients (one kernel launch per leaf for all nodes).
-Telemetry, the comms engine and elastic mode are not ported.
+With ``GossipSpec.comm`` set, every mix runs through the comms engine
+(``comms/layer.py``), whose memory rides ``GDAState.comm`` over the slots
+x, y, u and v, and whose draws are keyed by the step.  Telemetry and
+elastic mode are not ported.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from typing import Any
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.comms.layer import make_mixer
+from repro_torch.comms.layer import (CommState, make_mixer, maybe_engine,
+                                     maybe_init_state)
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.core.minimax import MinimaxProblem
 from repro_torch.geometry import check_retraction_name
@@ -63,6 +67,7 @@ class GDAState:
     gx_prev: dict      # last Riemannian grad_x (per node, own batch)
     gy_prev: Tensor    # last grad_y
     step: int = 0
+    comm: CommState | None = None   # comms-engine memory (GossipSpec.comm)
 
 
 @dataclasses.dataclass
@@ -82,26 +87,32 @@ class DecentralizedGDA:
     deterministic = True
 
     def __init__(self, problem: MinimaxProblem, gossip: GossipSpec,
-                 hyper: GDAHyper = GDAHyper()):
+                 hyper: GDAHyper = GDAHyper(), draws=None):
+        """``draws``: the comms engine's draw source (default: one seeded
+        with ``gossip.comm.seed``); unused without ``gossip.comm``."""
         self.problem = problem
         self.gossip = gossip
         self.hyper = hyper
         check_retraction_name(hyper.retraction)
         self.k = gossip.k
+        self.engine = maybe_engine(gossip, draws=draws)
 
     def init(self, x0: dict, y0: Tensor, batch0: Any) -> GDAState:
         """x0/y0 node-stacked; u_0 = grad_x f_i(x_0, y_0; B_0), v_0 likewise."""
         with torch.no_grad():
             _, rgx, gy = _vmapped_loss_and_rgrads(self.problem, x0, y0, batch0)
+        comm0 = maybe_init_state(self.engine,
+                                 {"x": x0, "y": y0, "u": rgx, "v": gy})
         return GDAState(x=x0, y=y0, u=rgx, v=gy,
                         gx_prev=tree_map(torch.clone, rgx),
-                        gy_prev=gy.clone(), step=0)
+                        gy_prev=gy.clone(), step=0, comm=comm0)
 
     @torch.no_grad()
     def step(self, state: GDAState, batch: Any
              ) -> tuple[GDAState, StepMetrics]:
         h, k = self.hyper, self.k
-        mix = make_mixer(self.gossip)
+        mix, comm_final = make_mixer(self.gossip, self.engine, state.comm,
+                                     state.step)
 
         # ---- step 4: Riemannian consensus + tracked descent on x ----------
         mixed_x = mix("x", state.x, k)
@@ -128,7 +139,7 @@ class DecentralizedGDA:
 
         new_state = GDAState(x=x_new, y=y_new, u=u_new, v=v_new,
                              gx_prev=rgx_new, gy_prev=gy_new,
-                             step=state.step + 1)
+                             step=state.step + 1, comm=comm_final())
         metrics = StepMetrics(
             loss=loss_new.mean(),
             grad_norm_x=_tree_mean_norm(rgx_new),

@@ -10,17 +10,20 @@ node-stacked layout (node axis = axis 0 of every leaf):
 
 ``GossipSpec.mix`` runs through the stacked backend
 (:mod:`repro_torch.comms.backend`), which sends ring hops to the CUDA
-kernels.
+kernels.  ``GossipSpec.comm`` (a :class:`~repro_torch.comms.spec.CommSpec`)
+turns on the comms engine: compressed gossip with error feedback and a
+faulty channel.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Literal
+from typing import Literal, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.comms.spec import CommSpec
 from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
@@ -151,6 +154,10 @@ class GossipSpec:
     n_nodes: int = 16
     k_steps: int | None = None      # None => Theorem-1 prescription
     self_weight: float = 1.0 / 3.0
+    # When set and enabled, the optimizers route mixing through
+    # repro_torch.comms.layer.CommEngine (compression, channel faults)
+    # instead of the exact paths.
+    comm: Optional[CommSpec] = None
 
     @property
     def matrix(self) -> np.ndarray:

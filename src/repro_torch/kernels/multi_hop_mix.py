@@ -1,8 +1,9 @@
-"""Launcher of the CUDA multi-hop ring mix (``csrc/multi_hop_mix.cu``).
+"""Launchers of the CUDA multi-hop ring mixes: fp32 (``csrc/multi_hop_mix.cu``)
+and int8 all-hop (``csrc/multi_hop_mix_quant.cu``).
 
-``ops.multi_hop_mix`` validates and shapes the operand; this module picks
-the block width, allocates the output, launches on the current stream and
-counts the launches.
+``ops.multi_hop_mix`` / ``ops.multi_hop_mix_quant`` validate and shape the
+operands; this module picks the block width, allocates the output and
+scratch, launches on the current stream and counts the launches.
 """
 from __future__ import annotations
 
@@ -55,4 +56,49 @@ def launch(x: torch.Tensor, hops: int, w_self: float,
                         w_side, width, stream)
     build.check("multi_hop_mix", code)
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 all-hop schedule (csrc/multi_hop_mix_quant.cu)
+# ---------------------------------------------------------------------------
+
+#: launches of the int8 all-hop kernel since the last reset
+quant_launches = 0
+
+
+@functools.cache
+def _quant_lib():
+    lib = build.library("multi_hop_mix_quant")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_multi_hop_mix_quant.argtypes = [
+        p, p, p, p, p, i, ctypes.c_longlong, i, ctypes.c_float,
+        ctypes.c_float, p]
+    lib.repro_multi_hop_mix_quant.restype = ctypes.c_int
+    lib.repro_multi_hop_mix_quant_smem.argtypes = [i]
+    lib.repro_multi_hop_mix_quant_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def launch_quant(q: torch.Tensor, scale: torch.Tensor, hops: int,
+                 w_self: float, w_side: float) -> torch.Tensor:
+    """``hops`` int8-compressed wrapped ring hops of a contiguous int8 CUDA
+    payload (n, f) with contiguous fp32 scales (n, 1), in one cooperative
+    launch; returns fp32 (n, f).  A launch the card refuses raises."""
+    global quant_launches
+    n, f = q.shape
+    lib = _quant_lib()
+    if lib.repro_multi_hop_mix_quant_smem(n) > _MAX_SMEM:
+        raise ValueError(f"multi_hop_mix_quant: a ring of {n} nodes does not "
+                         f"fit one block's shared memory")
+    out = torch.empty((n, f), dtype=torch.float32, device=q.device)
+    scratch = torch.empty_like(out) if hops > 1 else out
+    amax = torch.empty(3 * n, dtype=torch.int32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.repro_multi_hop_mix_quant(
+            q.data_ptr(), scale.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            amax.data_ptr(), n, f, hops, w_self, w_side, stream)
+    build.check("multi_hop_mix_quant", code)
+    quant_launches += 1
     return out

@@ -4,10 +4,11 @@
   * a tensor on a CUDA card  -> the hand-written CUDA kernel, or an error.
 
 There is no environment switch and no fallback: a CUDA tensor the kernel
-does not take (another dtype, too many nodes) raises, and so does any
-other device.  The wrappers own the operand checks, flattening and
-contiguity, as the JAX package's ``kernels/ops.py`` does; the kernel
-modules only allocate, launch and count (:func:`launch_counts`).
+does not take (another dtype than float32, or than int8 for a compressed
+payload; too many nodes) raises, and so does any other device.  The
+wrappers own the operand checks, flattening and contiguity, as the JAX
+package's ``kernels/ops.py`` does; the kernel modules only allocate,
+launch and count (:func:`launch_counts`).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels import multi_hop_mix as _mh
+from repro_torch.kernels import quant_mix as _qm
 from repro_torch.kernels import ref
 from repro_torch.kernels import retract as _rt
 from repro_torch.kernels import ring_mix as _rm
@@ -23,24 +25,31 @@ from repro_torch.kernels import stiefel_project as _sp
 
 Tensor = torch.Tensor
 
-_KERNELS = {"stiefel_project": _sp, "fused_retract": _rt, "ring_mix": _rm,
-            "multi_hop_mix": _mh}
+# wrapper name -> (launcher module, its launch counter)
+_KERNELS = {"stiefel_project": (_sp, "launches"),
+            "fused_retract": (_rt, "launches"),
+            "ring_mix": (_rm, "launches"),
+            "multi_hop_mix": (_mh, "launches"),
+            "quant_mix": (_qm, "launches"),
+            "multi_hop_mix_quant": (_mh, "quant_launches")}
 _MAX_GRID_YZ = 65535      # CUDA's limit on grid.y / grid.z
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
-def _on_card(name: str, *ts: Tensor) -> bool:
-    """False for CPU operands (plain version), True for fp32 CUDA operands
-    (kernel); raises for anything else."""
+def _on_card(name: str, *ts: Tensor, dtypes=None) -> bool:
+    """False for CPU operands (plain version), True for CUDA operands of
+    the kernel's dtypes (``dtypes``, one per operand; float32 by default);
+    raises for anything else."""
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError(f"{name}: operands on different devices "
@@ -49,10 +58,10 @@ def _on_card(name: str, *ts: Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    for t in ts:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                            f"{t.dtype}")
+    for t, want in zip(ts, dtypes or [torch.float32] * len(ts)):
+        if t.dtype != want:
+            raise TypeError(f"{name}: the CUDA kernel takes {want} for this "
+                            f"operand, got {t.dtype}")
     return True
 
 
@@ -143,3 +152,52 @@ def multi_hop_mix(x: Tensor, *, hops: int, w_self: float,
         return out.reshape(x.shape)
     return _mh.launch(x.reshape(n, f).contiguous(), hops, w_self,
                       w_side).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# compressed ring hops on int8 payloads (one fp32 scale per node row)
+# ---------------------------------------------------------------------------
+
+
+def _payload(name: str, q: Tensor, scale: Tensor) -> tuple[int, int, Tensor]:
+    """(n, F, scales as (n, 1)) of a node-stacked payload and its scales."""
+    n, f = _nodes(name, q)
+    if scale.numel() != n:
+        raise ValueError(f"{name}: want one scale per node row ({n}), got "
+                         f"shape {tuple(scale.shape)}")
+    return n, f, scale.reshape(n, 1)
+
+
+def quant_mix(q: Tensor, scale: Tensor, *, w_self: float,
+              w_side: float) -> Tensor:
+    """One compressed ring hop ``wc*dq(q[i]) + ws*(dq(q[i-1]) + dq(q[i+1]))``,
+    ``dq(q[j]) = q[j] * scale[j]``, of a node-stacked int8 payload with one
+    fp32 scale per node, neighbours wrapped mod n; fp32 of ``q``'s shape."""
+    n, f, s = _payload("quant_mix", q, scale)
+    if not _on_card("quant_mix", q, s, dtypes=(torch.int8, torch.float32)):
+        q2 = q.reshape(n, f)
+        return ref.quant_mix_ref(q2, q2.roll(1, 0), q2.roll(-1, 0), s,
+                                 s.roll(1, 0), s.roll(-1, 0), w_self,
+                                 w_side).reshape(q.shape)
+    return _qm.launch(q.reshape(n, f).contiguous(), s.contiguous(), w_self,
+                      w_side).reshape(q.shape)
+
+
+def multi_hop_mix_quant(q: Tensor, scale: Tensor, *, hops: int,
+                        w_self: float, w_side: float) -> Tensor:
+    """``hops`` int8-compressed ring hops in one launch: hop 0 decodes and
+    combines the payload (:func:`quant_mix`), every later hop requantizes
+    each row deterministically (``comms.compress.quantize_det``) and
+    combines the decoded values.  The plain version is the JAX package's
+    halo-panel oracle on the wrapped panel, center rows."""
+    n, f, s = _payload("multi_hop_mix_quant", q, scale)
+    if hops < 1:
+        raise ValueError(f"multi_hop_mix_quant: hops={hops} < 1")
+    if not _on_card("multi_hop_mix_quant", q, s,
+                    dtypes=(torch.int8, torch.float32)):
+        z = ref.multi_hop_mix_quant_ref(
+            ref.ring_panel(q, hops), ref.ring_panel(s, hops), hops=hops,
+            w_self=w_self, w_side=w_side)
+        return z[hops:hops + n].reshape(q.shape)
+    return _mh.launch_quant(q.reshape(n, f).contiguous(), s.contiguous(),
+                            hops, w_self, w_side).reshape(q.shape)

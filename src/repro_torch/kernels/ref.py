@@ -5,7 +5,8 @@ They keep the interfaces of the JAX package's oracles
 they are what ``ops.py`` runs for a tensor on the CPU.  On the card,
 ``chip_smoke.py`` holds every CUDA kernel against them.  Each operation is
 a separate PyTorch call, so every elementwise result is rounded on its own
-(no FMA contraction); the ring combines are bitwise the CUDA kernels'.
+(no FMA contraction); the ring combines, fp32 and int8, are bitwise the
+CUDA kernels'.
 """
 from __future__ import annotations
 
@@ -98,7 +99,70 @@ def ring_panel(x: Tensor, halo: int) -> Tensor:
     """The wrapped halo panel of a node-stacked leaf: row ``j`` of the
     ``(n + 2 halo, F)`` result is node ``(j - halo) mod n``.  On it,
     :func:`multi_hop_mix_ref` with ``out_rows = n`` computes ``hops <= halo``
-    ring hops of the whole ring."""
+    ring hops of the whole ring, and so does
+    :func:`multi_hop_mix_quant_ref` in rows ``halo : halo + n``."""
     n = x.shape[0]
     idx = (torch.arange(n + 2 * halo, device=x.device) - halo) % n
     return x.reshape(n, -1)[idx]
+
+
+# ---------------------------------------------------------------------------
+# int8 all-hop ring mix (halo panel)
+# ---------------------------------------------------------------------------
+
+
+def _shift_down(z: Tensor) -> Tensor:
+    """Row i-1's value at row i; zeros shifted in at the top."""
+    return torch.cat([torch.zeros_like(z[:1]), z[:-1]], dim=0)
+
+
+def _shift_up(z: Tensor) -> Tensor:
+    """Row i+1's value at row i; zeros shifted in at the bottom."""
+    return torch.cat([z[1:], torch.zeros_like(z[:1])], dim=0)
+
+
+def _panel_hop_dq(q: Tensor, s: Tensor, w_self: float,
+                  w_side: float) -> Tensor:
+    """One ring combine on quantized panel values with per-row scales,
+    dequantizing each shifted operand separately:
+    ``wc*(q_i s_i) + ws*((q_{i-1} s_{i-1}) + (q_{i+1} s_{i+1}))``, the
+    dataflow of :func:`quant_mix_ref`.  The two boundary rows see zeros."""
+    return (w_self * (q * s)
+            + w_side * (_shift_down(q) * _shift_down(s)
+                        + _shift_up(q) * _shift_up(s)))
+
+
+def multi_hop_mix_quant_ref(q_panel: Tensor, s_panel: Tensor, *, hops: int,
+                            w_self: float, w_side: float) -> Tensor:
+    """All-hop compressed schedule on an int8 halo panel: hop 0 fuses
+    dequantize + combine, every later hop requantizes deterministically
+    (round half to even, per-row max-abs/127 scale, 1e-12 floor; the
+    formula of ``comms.compress.quantize_det``) before combining.  Returns
+    the full evolved f32 panel; the exact rows are the center ones
+    (``halo >= hops``).  The divisor 127 is a tensor: PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal instead."""
+    z = _panel_hop_dq(q_panel.to(torch.float32), s_panel.to(torch.float32),
+                      w_self, w_side)
+    for _ in range(1, hops):
+        amax = torch.amax(z.abs(), dim=1, keepdim=True)
+        scale = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-12)
+        q = torch.clamp(torch.round(z / scale), -127.0, 127.0)
+        z = _panel_hop_dq(q, scale, w_self, w_side)
+    return z
+
+
+# ---------------------------------------------------------------------------
+# fused dequantize + ring combine
+# ---------------------------------------------------------------------------
+
+
+def quant_mix_ref(q_self: Tensor, q_left: Tensor, q_right: Tensor,
+                  s_self: Tensor, s_left: Tensor, s_right: Tensor,
+                  w_self: float, w_side: float) -> Tensor:
+    """Compressed gossip hop's combine on int8 payloads with per-row scales:
+    out = wc * dq(qc) + ws * (dq(ql) + dq(qr)), dq(q) = q * scale, f32."""
+    def dq(q, s):
+        return q.to(torch.float32) * s.to(torch.float32)
+
+    return (w_self * dq(q_self, s_self)
+            + w_side * (dq(q_left, s_left) + dq(q_right, s_right)))

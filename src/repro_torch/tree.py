@@ -39,3 +39,29 @@ def tree_leaves(tree: Tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_flatten(tree: Tree) -> tuple[list, Callable[[list], Tree]]:
+    """Leaves in the JAX package's flatten order (dict keys sorted), and a
+    function that builds a tree of the same structure from such a list.
+    Per-leaf draws are indexed by this order, as ``jax.tree.flatten``'s."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [tree_flatten(t) for t in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    sizes = [len(leaves) for leaves, _ in parts]
+
+    def unflatten(leaves: list) -> Tree:
+        out, at = [], 0
+        for (_, build), size in zip(parts, sizes):
+            out.append(build(leaves[at:at + size]))
+            at += size
+        if keys is not None:
+            return {k: out[keys.index(k)] for k in tree}
+        return type(tree)(out)
+
+    return [leaf for leaves, _ in parts for leaf in leaves], unflatten

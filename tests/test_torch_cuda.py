@@ -6,14 +6,17 @@ machine that has only PyTorch:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Gates as in ``chip_smoke.py``: the ring mixes bitwise, stiefel_project
-1e-5 relative, fused_retract 5e-5 absolute.
+Gates as in ``chip_smoke.py``: the ring mixes (fp32 and int8) bitwise,
+stiefel_project 1e-5 relative, fused_retract 5e-5 absolute.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
+from repro_torch.comms.backend import StackedBackend
+from repro_torch.comms.compress import quantize_det
+from repro_torch.core.gossip import GossipSpec
 from repro_torch.kernels import ops, ref
 
 WC, WS = 1.0 / 3.0, 1.0 / 3.0
@@ -65,3 +68,55 @@ def test_cuda_wrappers_raise_on_fp64(cuda):
                  lambda: ops.fused_retract(x, x)):
         with pytest.raises(TypeError, match="float32"):
             call()
+
+
+def _quant_hop_plain(q, s):
+    return ref.quant_mix_ref(q, q.roll(1, 0), q.roll(-1, 0), s, s.roll(1, 0),
+                             s.roll(-1, 0), WC, WS)
+
+
+@pytest.mark.parametrize("n", [3, 20])
+@pytest.mark.parametrize("f", [1, 3, 130, 50176])
+def test_cuda_quant_kernels_bitwise(cuda, n, f):
+    gen = torch.Generator(device=cuda).manual_seed(n + f)
+    x = torch.randn((n, f), generator=gen, device=cuda)
+    q, s = quantize_det(x)
+    s = s.reshape(n, 1)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.quant_mix(q, s, w_self=WC, w_side=WS),
+                       _quant_hop_plain(q, s))
+    for hops in (1, 3, 66):
+        want = ref.multi_hop_mix_quant_ref(
+            ref.ring_panel(q, hops), ref.ring_panel(s, hops), hops=hops,
+            w_self=WC, w_side=WS)[hops:hops + n]
+        got = ops.multi_hop_mix_quant(q, s, hops=hops, w_self=WC, w_side=WS)
+        assert torch.equal(got, want), hops
+    counts = ops.launch_counts()
+    assert counts["quant_mix"] == 1 and counts["multi_hop_mix_quant"] == 3
+
+
+def test_cuda_quant_ring_hops_is_the_plain_schedule(cuda):
+    """The backend's one-launch all-hop schedule == hop by hop
+    quantize_det + quant_mix, the JAX package's stacked schedule."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    spec = GossipSpec(n_nodes=20)
+    for shape in [(20, 3), (20, 16, 8, 3, 3), (20, 784, 64)]:
+        x = torch.randn(shape, generator=gen, device=cuda)
+        z = x
+        for _ in range(7):
+            q, s = quantize_det(z)
+            z = _quant_hop_plain(q.reshape(20, -1),
+                                 s.reshape(20, 1)).reshape(shape)
+        assert torch.equal(StackedBackend().quant_ring_hops(spec, x, 7), z)
+
+
+def test_cuda_quant_wrappers_refuse_other_dtypes(cuda):
+    q = torch.zeros(4, 8, dtype=torch.int8, device=cuda)
+    s = torch.ones(4, 1, device=cuda)
+    for call in (ops.quant_mix,
+                 lambda a, b, **kw: ops.multi_hop_mix_quant(a, b, hops=2,
+                                                            **kw)):
+        with pytest.raises(TypeError, match="int8"):
+            call(q.float(), s, w_self=WC, w_side=WS)
+        with pytest.raises(TypeError, match="float32"):
+            call(q, s.double(), w_self=WC, w_side=WS)

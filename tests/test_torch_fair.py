@@ -8,9 +8,21 @@ and products summed in another order); the DRGDA/DRSGDA trajectories over
 in the final M_t.  Measured differences are a few 1e-7: the two packages
 round the same fp32 operations in different orders, and 10 steps of the
 method do not amplify that past 1e-6.
+
+EF-int8 gossip (the JAX package's draws handed in): stochastic rounding
+``floor(x/scale + u)`` turns a difference of a few 1e-7 in ``x`` into a
+whole int8 step where ``x/scale + u`` lies that close to an integer (a
+flip), and error feedback carries it on.  So each of 10 steps is held on
+the reference's trajectory (both packages step from the same state, carried
+over with ``convert``) at the larger of 1e-5 and one quantization step of
+the slot, ``max|x - x_hat| / 127`` per node row (the JAX package's own gate
+for its int8 kernel); the free-running 10-step trajectories, which flips
+separate, are held to 1e-3 in loss and 2e-3 relative in the final M_t
+(measured: 1e-4 and 4e-4).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -20,6 +32,8 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from _jax_draws import JaxDraws  # noqa: E402
+from repro.comms.spec import CommSpec as JCommSpec  # noqa: E402
 from repro.core import OPTIMIZERS as J_OPTIMIZERS  # noqa: E402
 from repro.core import gda as jgda  # noqa: E402
 from repro.core.gossip import GossipSpec as JSpec  # noqa: E402
@@ -27,6 +41,7 @@ from repro.core.metric import convergence_metric as j_metric  # noqa: E402
 from repro.data.synthetic import ClassificationStream as JStream  # noqa: E402
 from repro.objectives import fair as jfair  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.comms.spec import CommSpec  # noqa: E402
 from repro_torch.core import gda as tgda  # noqa: E402
 from repro_torch.core.gossip import GossipSpec  # noqa: E402
 from repro_torch.core.metric import convergence_metric  # noqa: E402
@@ -176,6 +191,90 @@ def test_trajectory_matches_reference(setup, method, retraction):
     got = float(convergence_metric(tprob, ts.x, ts.y,
                                    convert.batch_to_torch(full, "cpu"))["M_t"])
     assert abs(got - want) <= 1e-5 * want
+
+
+def _port_slot(tree):
+    if isinstance(tree, dict):
+        return convert.params_from_reference(jax.tree.map(np.asarray, tree),
+                                             "cpu")
+    return torch.from_numpy(np.array(tree, dtype=np.float32))
+
+
+def _port_state(js):
+    """The JAX package's GDAState (with its comms memory) as the port's."""
+    hats = {slot: jax.tree.map(np.asarray, t)
+            for slot, t in js.comm.hats.items()}
+    return tgda.GDAState(
+        x=_port_slot(js.x), y=_port_slot(js.y), u=_port_slot(js.u),
+        v=_port_slot(js.v), gx_prev=_port_slot(js.gx_prev),
+        gy_prev=_port_slot(js.gy_prev), step=int(js.step),
+        comm=convert.comm_state_from_reference(hats, None, "cpu"))
+
+
+def _payload_flips(t_hats, t_old, j_hats, j_old, qstep):
+    """Payload elements (hat increments) that differ by half a step or
+    more: stochastic-rounding flips and what error feedback carried on."""
+    flips = 0
+    for key, step in qstep.items():
+        d = (t_hats[key] - t_old[key]) - (np.asarray(j_hats[key])
+                                          - np.asarray(j_old[key]))
+        flips += int((np.abs(d).reshape(N, -1) > 0.5 * step[:, None]).sum())
+    return flips
+
+
+@pytest.mark.parametrize("k,quant_hops", [(1, "first"), (3, "all")])
+def test_ef_int8_trajectory_matches_reference(setup, k, quant_hops):
+    params, stream = setup
+    comm = CommSpec(compressor="int8", gamma=0.95, quant_hops=quant_hops)
+    hyper = dict(alpha=0.5, beta=0.05, eta=0.2, retraction="polar_fused")
+    jprob, tprob = jfair.make_fair_problem(params), fair.make_fair_problem({})
+    jspec = JSpec(n_nodes=N, k_steps=k,
+                  comm=JCommSpec(**dataclasses.asdict(comm)))
+    jopt = J_OPTIMIZERS["drgda"](jprob, jspec, jgda.GDAHyper(**hyper))
+    topt = tgda.DRGDA(tprob, GossipSpec(n_nodes=N, k_steps=k, comm=comm),
+                      tgda.GDAHyper(**hyper), draws=JaxDraws(comm))
+    full = stream.full(2)
+    tb = convert.batch_to_torch(full, "cpu")
+    js = jopt.init(jgda.broadcast_to_nodes(params, N),
+                   jnp.full((N, 3), 1.0 / 3.0), _jbatch(full))
+    free = topt.init(_port_slot(js.x), torch.full((N, 3), 1.0 / 3.0), tb)
+    step = jax.jit(jopt.step)
+    forced_flips, free_flips = 0, []
+    for t in range(10):
+        qstep = {key: np.abs((np.asarray(js.x[key])
+                              - np.asarray(js.comm.hats["x"][key])
+                              ).reshape(N, -1)).max(1) / 127.0
+                 for key in js.x}
+        jn, jm = step(js, _jbatch(full))
+        # one port step from the reference's own state
+        tn, tm = topt.step(_port_state(js), tb)
+        tx = convert.params_to_reference(tn.x)
+        for key in tx:
+            diff = np.abs(tx[key] - np.asarray(jn.x[key])).reshape(N, -1)
+            gate = np.maximum(1e-5, qstep[key])
+            assert (diff.max(1) <= gate).all(), (t, key, diff.max(1), gate)
+        np.testing.assert_allclose(_np(tn.y), np.asarray(jn.y), atol=1e-5)
+        assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5, t
+        forced_flips += _payload_flips(
+            convert.params_to_reference(tn.comm.hats["x"]),
+            convert.params_to_reference(_port_state(js).comm.hats["x"]),
+            jn.comm.hats["x"], js.comm.hats["x"], qstep)
+        # the free-running port trajectory
+        old = convert.params_to_reference(free.comm.hats["x"])
+        free, fm = topt.step(free, tb)
+        free_flips.append(_payload_flips(
+            convert.params_to_reference(free.comm.hats["x"]), old,
+            jn.comm.hats["x"], js.comm.hats["x"], qstep))
+        assert abs(float(fm.loss) - float(jm.loss)) <= 1e-3, t
+        js = jn
+    assert forced_flips == 0
+    want = float(jax.jit(functools.partial(j_metric, jprob))(
+        js.x, js.y, _jbatch(full))["M_t"])
+    got = float(convergence_metric(tprob, free.x, free.y, tb)["M_t"])
+    print(f"EF-int8 k={k} quant_hops={quant_hops}: payload flips of x per "
+          f"free-running step {free_flips}; final M_t {got:.6f} (port) vs "
+          f"{want:.6f} (reference)")
+    assert abs(got - want) <= 2e-3 * want
 
 
 def test_run_method_on_the_cpu():

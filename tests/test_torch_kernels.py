@@ -14,6 +14,13 @@ NumPy inputs.  Tolerances:
 * fused_retract: 5e-5 against ``retract_polar(..., method="eigh")`` (the
   JAX package's own gate) and against its Pallas kernel (ns_iters = 20
   pinned, so no tuned config applies).
+* quant_mix / multi_hop_mix_quant: bitwise against the eager oracles and
+  against the JAX package's stacked hop-by-hop ``quant_ring_hops`` run
+  eagerly.  Against the Pallas kernels in interpret mode (jitted, so the
+  combine may be FMA-contracted): quant_mix within one rounding of its
+  products, multi_hop_mix_quant within one int8 step (``max|out| / 127``,
+  the JAX package's own gate for its kernel), since a value that moves by
+  one rounding can requantize one step apart.
 
 The CUDA kernels themselves are tested in ``test_torch_cuda.py``.
 """
@@ -26,9 +33,13 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.comms import compress as jcompress  # noqa: E402
+from repro.comms.backend import StackedBackend as JStacked  # noqa: E402
+from repro.core.gossip import GossipSpec as JGossip  # noqa: E402
 from repro.geometry import stiefel as jst  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.comms import compress  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 WC, WS = 1.0 / 3.0, 1.0 / 3.0
@@ -112,6 +123,70 @@ def test_halo_panel_oracle_bitwise(b, halo, hops):
 
 
 # ---------------------------------------------------------------------------
+# int8 compressed ring mixes
+# ---------------------------------------------------------------------------
+
+
+def _payload(rng, shape):
+    """A deterministic int8 payload of a random leaf, from both packages."""
+    x = rng.normal(size=shape).astype(np.float32)
+    q, s = compress.quantize_det(_t(x))
+    jq, js = jcompress.quantize_det(jnp.asarray(x))
+    np.testing.assert_array_equal(_np(q), np.asarray(jq))
+    return x, q, s
+
+
+@pytest.mark.parametrize("shape", [(3, 5), (4, 16, 8), (20, 3), (7, 1),
+                                   (2, 9)])
+@pytest.mark.parametrize("w", [(WC, WS), (0.4, 0.3)])
+def test_quant_mix_bitwise_vs_oracle(shape, w):
+    x, q, s = _payload(np.random.default_rng(sum(shape)), shape)
+    n = shape[0]
+    q2, s2 = _np(q).reshape(n, -1), _np(s).reshape(n, 1)
+    args = [jnp.asarray(a) for a in (q2, np.roll(q2, 1, 0), np.roll(q2, -1, 0),
+                                     s2, np.roll(s2, 1, 0), np.roll(s2, -1, 0))]
+    want = np.asarray(jref.quant_mix_ref(*args, *w)).reshape(shape)
+    got = _np(ops.quant_mix(q, s, w_self=w[0], w_side=w[1]))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        _np(ref.quant_mix_ref(*(torch.from_numpy(np.array(a))
+                                for a in args), *w)).reshape(shape), want)
+    pallas = np.asarray(jops.quant_mix(*args, w_self=w[0], w_side=w[1],
+                                       impl="pallas_interpret"))
+    assert np.abs(got.reshape(n, -1) - pallas).max() <= \
+        2 * EPS32 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,f,hops", [(3, 7, 1), (5, 33, 3), (4, 16, 9),
+                                      (6, 130, 4), (20, 8, 23)])
+def test_multi_hop_mix_quant_vs_reference(n, f, hops):
+    """k int8 hops of the node-stacked ring == the JAX package's stacked
+    hop-by-hop schedule (eager) == its halo-panel oracle on the wrapped
+    panel, bit for bit (k > n too); within one int8 step of its Pallas
+    kernel."""
+    x, q, s = _payload(np.random.default_rng(n * f + hops), (n, f))
+    got = _np(ops.multi_hop_mix_quant(q, s, hops=hops, w_self=WC, w_side=WS))
+    with jax.disable_jit():
+        stacked = np.asarray(JStacked().quant_ring_hops(
+            JGossip(n_nodes=n), jnp.asarray(x), hops))
+    np.testing.assert_array_equal(got, stacked)
+    idx = (np.arange(n + 2 * hops) - hops) % n
+    qp, sp = _np(q)[idx], _np(s)[idx]
+    oracle = np.asarray(jref.multi_hop_mix_quant_ref(
+        jnp.asarray(qp), jnp.asarray(sp), hops=hops, w_self=WC,
+        w_side=WS))[hops:hops + n]
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(_np(ref.multi_hop_mix_quant_ref(
+        torch.from_numpy(qp), torch.from_numpy(sp), hops=hops, w_self=WC,
+        w_side=WS))[hops:hops + n], oracle)
+    pallas = np.asarray(jops.multi_hop_mix_quant(
+        jnp.asarray(qp), jnp.asarray(sp), hops=hops, out_rows=n, halo=hops,
+        w_self=WC, w_side=WS, impl="pallas_interpret"))
+    assert np.abs(got - pallas).max() <= np.abs(got).max() / 127.0
+
+
+# ---------------------------------------------------------------------------
 # Stiefel projection and fused retraction
 # ---------------------------------------------------------------------------
 
@@ -155,8 +230,12 @@ def test_cpu_calls_launch_nothing():
     ops.fused_retract(x, x)
     ops.ring_mix(x, w_self=WC, w_side=WS)
     ops.multi_hop_mix(x, hops=2, w_self=WC, w_side=WS)
+    q, s = compress.quantize_det(x)
+    ops.quant_mix(q, s, w_self=WC, w_side=WS)
+    ops.multi_hop_mix_quant(q, s, hops=3, w_self=WC, w_side=WS)
     assert ops.launch_counts() == {"stiefel_project": 0, "fused_retract": 0,
-                                   "ring_mix": 0, "multi_hop_mix": 0}
+                                   "ring_mix": 0, "multi_hop_mix": 0,
+                                   "quant_mix": 0, "multi_hop_mix_quant": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -164,6 +243,10 @@ def test_cpu_calls_launch_nothing():
     lambda x: ops.multi_hop_mix(x, hops=3, w_self=WC, w_side=WS),
     lambda x: ops.stiefel_project(x, x),
     lambda x: ops.fused_retract(x, x),
+    lambda x: ops.quant_mix(x.to(torch.int8), x[:, :1, :1], w_self=WC,
+                            w_side=WS),
+    lambda x: ops.multi_hop_mix_quant(x.to(torch.int8), x[:, 0, 0], hops=2,
+                                      w_self=WC, w_side=WS),
 ])
 def test_no_silent_fallback_for_other_devices(call):
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -180,3 +263,9 @@ def test_operand_checks():
         ops.multi_hop_mix(x, hops=0, w_self=WC, w_side=WS)
     with pytest.raises(ValueError, match="node-stacked"):
         ops.ring_mix(torch.zeros(0, 4), w_self=WC, w_side=WS)
+    q = torch.zeros(3, 5, dtype=torch.int8)
+    with pytest.raises(ValueError, match="one scale per node"):
+        ops.quant_mix(q, torch.ones(2, 1), w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="hops"):
+        ops.multi_hop_mix_quant(q, torch.ones(3, 1), hops=0, w_self=WC,
+                                w_side=WS)
