@@ -5,7 +5,7 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and turns TF32 off for matmuls and cuDNN.
-2. Builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. Builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time.
 3. Kernel phase: every kernel against its plain PyTorch version on the card,
    at the shapes one main-path step gives it and at stress shapes, with its
@@ -15,7 +15,15 @@
    and for the fp32 ring mixes beside one ``torch.matmul`` by W^k (the
    library call that computes the same function, up to rounding; no single
    PyTorch call computes the int8 ones).  A CUDA operand of another dtype
-   must raise, not fall back.
+   must raise, not fall back.  The attention kernels in fp32 and bf16
+   (gates 2e-5 and 2e-2 absolute, the JAX package's): flash_attention at
+   smollm-135m's prefill (S=256) and contiguous-decode (S=1, T=288)
+   shapes, at S=T=4096 causal and with window 48, and non-causal, beside
+   one ``scaled_dot_product_attention`` call with the same mask;
+   paged_decode at the engine's decode shape (4 slots, ragged seq_lens up
+   to 288, one empty) and at 64 slots of 2048 tokens (no PyTorch call
+   gathers through a block table).  Query rows without keys and empty
+   slots must be exact zeros.
 4. Main path, two paths, each with the launch counts set to 0 just before
    it and read just after:
    * full precision: DRGDA (full batch, polar_fused) and DRSGDA (minibatch)
@@ -31,7 +39,20 @@
    device time and busy share, the kernels that take the most), and small
    DRGDA runs on the card against the same runs on the CPU (plain
    versions), full precision and EF-int8.
-5. Prints the kernel table as one JSON line, the card line, and last
+5. Serving path: smollm-135m at its published widths (30 layers, fp32,
+   random weights from a seed) through the paged engine
+   (``repro_torch.serve``): 8 requests with ragged prompts of 24-256
+   tokens, 32 greedy tokens each, over 4 slots of 16-token pages, once to
+   record the logits and once timed with the launch counts set to 0 just
+   before it (flash_attention exactly 30 per prefill, paged_decode exactly
+   30 per decode wave; every request finishes, no page leaks).  The
+   contiguous-cache path fed the engine's tokens gives the same per-step
+   logits (1e-3 absolute) and argmax where the top-2 margin exceeds 1e-3.
+   Prints tokens/s, TTFT, the decode-wave time, launches per wave and the
+   device busy share of a wave (host wall, CUDA events, profiler device
+   time), then the SMOKE config's engine on the card against the CPU.
+   This phase runs last, after the main path's profile and agreement.
+6. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -55,6 +76,7 @@ SRC = ROOT / "src"
 # and HBM3 bandwidth.  bound_ms = max(flops / PEAK_FLOPS, bytes / PEAK_BYTES).
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_FLOPS_BF16 = 989e12     # dense bf16 on the tensor cores
 
 KERNEL_META = {
     "stiefel_project": ("src/repro_torch/kernels/csrc/stiefel_project.cu",
@@ -70,11 +92,16 @@ KERNEL_META = {
     "multi_hop_mix_quant": (
         "src/repro_torch/kernels/csrc/multi_hop_mix_quant.cu",
         "src/repro/kernels/multi_hop_mix.py:190"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:80"),
+    "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                     "src/repro/kernels/paged_decode.py:98"),
 }
 # the path each kernel belongs to (its launches in the table come from it)
 FULL_PATH = ("stiefel_project", "fused_retract", "ring_mix", "multi_hop_mix")
 INT8_PATH = ("stiefel_project", "fused_retract", "ring_mix", "quant_mix",
              "multi_hop_mix_quant")
+SERVE_PATH = ("flash_attention", "paged_decode")
 
 # Main-path geometry: 20 nodes, 28x28x1 images, init_cnn's widths.
 N_NODES = 20
@@ -116,8 +143,9 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -165,6 +193,62 @@ def _quant_cost(shape, hops):
             n * 1 + shape[0] * 4 + n * 4)
 
 
+def run_case(name, calls, plain_calls, gate, costs, label,
+             library_calls=None, peak=PEAK_FLOPS, lib_gate=1e-4):
+    """calls/plain_calls/library_calls: lists of thunks over the same
+    inputs; library_calls, where given, are one PyTorch call each that
+    computes the same function up to rounding, within ``lib_gate`` of the
+    plain version relative to its largest value.  ``peak``: the card's
+    operation rate for the inputs' type."""
+    import torch
+    outs = [c() for c in calls]
+    torch.cuda.synchronize()
+    want = [p() for p in plain_calls]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(outs, want))
+    scale = max(float(b.float().abs().max()) for b in want)
+    ok, gate_txt = gate(outs, want, err, scale)
+    ms = time_ms(lambda: [c() for c in calls])
+    plain_ms = time_ms(lambda: [p() for p in plain_calls])
+    library_ms, lib_txt = None, ""
+    if library_calls is not None:
+        lib_err = max(float((lc().float() - b.float()).abs().max())
+                      for lc, b in zip(library_calls, want))
+        # the library call rounds in another order (one product by
+        # W^k against k rounded hops; bf16 probabilities in SDPA): it
+        # only has to compute the same function, which lib_gate shows
+        if lib_err > lib_gate * scale:
+            raise AssertionError(f"{name} {label}: the library call "
+                                 f"differs by {lib_err:.3e}")
+        library_ms = time_ms(lambda: [lc() for lc in library_calls])
+        lib_txt = f" library={library_ms:.4f} ms (err {lib_err:.1e})"
+    flops = sum(c[0] for c in costs)
+    nbytes = sum(c[1] for c in costs)
+    b_ms, b_by = bound(flops, nbytes, peak)
+    log(f"  {name:16s} {label:34s} max_abs_err={err:.3e} "
+        f"({gate_txt}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
+        f"{lib_txt} bound={b_ms:.5f} ms ({b_by})")
+    if not ok:
+        raise AssertionError(f"{name} {label}: outside its gate "
+                             f"({gate_txt}), max_abs_err={err:.3e}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def bitwise(outs, want, err, scale):
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(outs, want)), "bitwise"
+
+
+def absolute(tol):
+    return lambda outs, want, err, scale: (err <= tol, f"<= {tol:g} abs")
+
+
+def relative(tol):
+    return lambda outs, want, err, scale: (err <= tol * scale,
+                                           f"<= {tol:g} rel")
+
+
 def kernel_phase(device="cuda") -> dict:
     """Each kernel against its plain version; returns the table rows."""
     import numpy as np
@@ -176,53 +260,6 @@ def kernel_phase(device="cuda") -> dict:
     wc = 1.0 / 3.0
     ws = (1.0 - wc) / 2.0
     rows = {}
-
-    def run_case(name, calls, plain_calls, gate, costs, label,
-                 library_calls=None):
-        """calls/plain_calls/library_calls: lists of thunks over the same
-        inputs; library_calls, where given, are one PyTorch call each that
-        computes the same function up to rounding."""
-        outs = [c() for c in calls]
-        torch.cuda.synchronize()
-        want = [p() for p in plain_calls]
-        err = max(float((a - b).abs().max()) for a, b in zip(outs, want))
-        scale = max(float(b.abs().max()) for b in want)
-        ok, gate_txt = gate(outs, want, err, scale)
-        ms = time_ms(lambda: [c() for c in calls])
-        plain_ms = time_ms(lambda: [p() for p in plain_calls])
-        library_ms, lib_txt = None, ""
-        if library_calls is not None:
-            lib_err = max(float((lc() - b).abs().max())
-                          for lc, b in zip(library_calls, want))
-            # the library call rounds in another order (one product by
-            # W^k against k rounded hops): it only has to compute the same
-            # function, which 1e-4 relative shows
-            if lib_err > 1e-4 * scale:
-                raise AssertionError(f"{name} {label}: the library call "
-                                     f"differs by {lib_err:.3e}")
-            library_ms = time_ms(lambda: [lc() for lc in library_calls])
-            lib_txt = f" library={library_ms:.4f} ms (err {lib_err:.1e})"
-        flops = sum(c[0] for c in costs)
-        nbytes = sum(c[1] for c in costs)
-        b_ms, b_by = bound(flops, nbytes)
-        log(f"  {name:16s} {label:34s} max_abs_err={err:.3e} "
-            f"({gate_txt}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
-            f"{lib_txt} bound={b_ms:.5f} ms ({b_by})")
-        if not ok:
-            raise AssertionError(f"{name} {label}: outside its gate "
-                                 f"({gate_txt}), max_abs_err={err:.3e}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
-
-    def bitwise(outs, want, err, scale):
-        return all(torch.equal(a, b) for a, b in zip(outs, want)), "bitwise"
-
-    def absolute(tol):
-        return lambda outs, want, err, scale: (err <= tol, f"<= {tol:g} abs")
-
-    def relative(tol):
-        return lambda outs, want, err, scale: (err <= tol * scale,
-                                               f"<= {tol:g} rel")
 
     # -- stiefel_project and fused_retract ---------------------------------
     for name, op, plain, gate, cost in (
@@ -456,7 +493,7 @@ def main_path_phase() -> dict:
         ("drgda", 10, True, 1, COMM_PRESETS["int8_ef_drop5"],
          {"quant_mix": 0, "multi_hop_mix_quant": 0})), INT8_PATH)
     return {name: (full if name in FULL_PATH else ef)[name]
-            for name in KERNEL_META}
+            for name in KERNEL_META if name not in SERVE_PATH}
 
 
 OWN_KERNELS = ("gram_partial_kernel", "sym_reduce_kernel", "apply_kernel",
@@ -571,6 +608,438 @@ def agreement_phase() -> None:
             f"loss {gpu['final_loss']:.6f} vs {cpu['final_loss']:.6f}")
 
 
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+
+# smollm-135m's serving geometry (src/repro_torch/configs/smollm_135m.py)
+N_LAYERS, N_HEADS, N_KV_HEADS, HEAD_DIM = 30, 9, 3, 64
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW, PAGE_SIZE = 4, 8, 32, 16
+PROMPT_LENGTHS = (24, 256)       # ragged prompt lengths, drawn from a seed
+ATTN_GATES = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _attn_mask(qpos, kvpos, causal, window):
+    """(B, S, T) bool: the keys each query may use, as the kernels mask."""
+    qp, kp = qpos[:, :, None], kvpos[:, None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & ((qp - kp) < window)
+    return mask
+
+
+def _flash_cost(q, k, v, mask):
+    """4 (hd + hdv) / 2 flops per unmasked (query, key) pair and head; q,
+    k, v, the output and the positions moved once."""
+    b, s, h, hd = q.shape
+    hdv = v.shape[-1]
+    flops = 2 * (hd + hdv) * h * float(mask.sum())
+    nbytes = ((q.numel() + k.numel() + v.numel() + b * s * h * hdv)
+              * q.element_size() + 4 * (b * s + b * k.shape[1]))
+    return flops, nbytes
+
+
+def _sdpa(q, k, v, mask, plain_causal):
+    """One ``scaled_dot_product_attention`` call computing the same
+    function, on (B, H, S, hd) copies made here, outside the timed call:
+    no mask where every key is usable, ``is_causal`` where the mask is the
+    plain causal one, else the boolean mask."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kw = {}
+    if plain_causal:
+        kw["is_causal"] = True
+    elif not bool(mask.all()):
+        kw["attn_mask"] = mask[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True, **kw).transpose(1, 2)
+
+
+def _paged_inputs(gen, seq, m_pages, n_pages, dtype, device="cuda"):
+    """q, pools and a block table of distinct random pages (page 0 never
+    handed out) for decode slots holding ``seq`` tokens."""
+    import torch
+    shape = (n_pages, PAGE_SIZE, N_KV_HEADS, HEAD_DIM)
+    q = torch.randn((len(seq), N_HEADS, HEAD_DIM), generator=gen,
+                    device=device).to(dtype)
+    kp = torch.randn(shape, generator=gen, device=device).to(dtype)
+    vp = torch.randn(shape, generator=gen, device=device).to(dtype)
+    order = torch.randperm(n_pages - 1, generator=gen, device=device) + 1
+    bt = torch.full((len(seq), m_pages), -1, dtype=torch.int32, device=device)
+    used = 0
+    for i, sl in enumerate(seq):
+        n = -(-sl // PAGE_SIZE)
+        bt[i, :n] = order[used:used + n]
+        used += n
+    return q, kp, vp, bt, torch.tensor(seq, dtype=torch.int32, device=device)
+
+
+def _paged_cost(q, kp, vp, bt, seq, window):
+    """4 (hd + hdv) / 2 flops per usable key and head; the pages holding
+    usable keys, q, the output, the table and seq_lens moved once."""
+    s, h, hd = q.shape
+    ps, hkv, hdv = kp.shape[1], kp.shape[2], vp.shape[-1]
+    keys = pages = 0
+    for sl in seq.tolist():
+        lo = max(0, sl - window) if window else 0
+        keys += sl - lo
+        pages += -(-sl // ps) - lo // ps
+    flops = 2 * (hd + hdv) * h * keys
+    nbytes = ((pages * ps * hkv * (hd + hdv) + q.numel() + s * h * hdv)
+              * q.element_size() + 4 * (bt.numel() + s))
+    return flops, nbytes
+
+
+def attention_kernel_phase(device="cuda") -> dict:
+    """flash_attention and paged_decode against their plain versions in
+    fp32 and bf16; returns the table rows (fp32, the serving path's
+    shapes: one prefill of 256 tokens, one decode wave of 4 slots)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    rows = {}
+    for dtype_name, gate in ATTN_GATES.items():
+        dtype = getattr(torch, dtype_name)
+        peak = PEAK_FLOPS_BF16 if dtype == torch.bfloat16 else PEAK_FLOPS
+        for label, s, t, causal, window in (
+                ("prefill S=T=256", 256, 256, True, None),
+                ("contiguous decode S=1 T=288", 1, 288, True, None),
+                ("stress S=T=4096", 4096, 4096, True, None),
+                ("stress S=T=4096 window 48", 4096, 4096, True, 48),
+                ("non-causal S=T=256", 256, 256, False, None)):
+            q = torch.randn((1, s, N_HEADS, HEAD_DIM), generator=gen,
+                            device=device).to(dtype)
+            k, v = (torch.randn((1, t, N_KV_HEADS, HEAD_DIM), generator=gen,
+                                device=device).to(dtype) for _ in range(2))
+            qpos = torch.arange(t - s, t, dtype=torch.int32,
+                                device=device)[None]
+            kvpos = torch.arange(t, dtype=torch.int32, device=device)[None]
+            mask = _attn_mask(qpos, kvpos, causal, window)
+            kw = dict(causal=causal, window=window, q_positions=qpos,
+                      kv_positions=kvpos)
+            row = run_case(
+                "flash_attention", [lambda: ops.flash_attention(q, k, v, **kw)],
+                [lambda: ref.blockwise_attention(q, k, v, **kw)],
+                absolute(gate), [_flash_cost(q, k, v, mask)],
+                f"{dtype_name} {label}",
+                [_sdpa(q, k, v, mask, causal and window is None and s == t)],
+                peak=peak, lib_gate=1e-4 if dtype == torch.float32 else 1e-2)
+            if dtype == torch.float32 and s == 256 and causal:
+                rows["flash_attention"] = row
+        # query rows without a usable key: exact zeros
+        q = torch.randn((1, 256, N_HEADS, HEAD_DIM), generator=gen,
+                        device=device).to(dtype)
+        pos = torch.arange(256, dtype=torch.int32, device=device)[None]
+        kvpos = torch.where(pos < 64, -1, pos)
+        out = ops.flash_attention(q, q[:, :, :N_KV_HEADS], q[:, :, :N_KV_HEADS],
+                                  q_positions=pos, kv_positions=kvpos)
+        want = ref.blockwise_attention(q, q[:, :, :N_KV_HEADS],
+                                       q[:, :, :N_KV_HEADS], q_positions=pos,
+                                       kv_positions=kvpos)
+        err = float((out.float() - want.float()).abs().max())
+        if not (bool(torch.all(out[:, :64] == 0)) and err <= gate):
+            raise AssertionError(f"flash_attention {dtype_name}: rows without "
+                                 f"keys not exact zeros, or err {err:.3e}")
+        log(f"  flash_attention  {dtype_name} 64 rows without keys: exact "
+            f"zeros (rest max_abs_err={err:.3e})")
+
+        for label, seq, m_pages, window in (
+                ("decode wave 4 slots", [288, 37, 0, 161], 18, None),
+                ("decode wave 4 slots window 48", [288, 37, 0, 161], 18, 48),
+                ("stress 64 slots x 2048", [2048] * 64, 128, None)):
+            n_pages = len(seq) * m_pages * 2 + 1
+            q, kp, vp, bt, sl = _paged_inputs(gen, seq, m_pages, n_pages,
+                                              dtype)
+            args = (q, kp, vp, bt, sl)
+            out = ops.paged_decode_attention(*args, window=window)
+            empty = sl == 0
+            if not bool(torch.all(out[empty] == 0)):
+                raise AssertionError("paged_decode: an empty slot is not "
+                                     "exact zeros")
+            row = run_case(
+                "paged_decode",
+                [lambda: ops.paged_decode_attention(*args, window=window)],
+                [lambda: ref.paged_decode_attention_ref(*args,
+                                                        window=window)],
+                absolute(gate), [_paged_cost(*args, window)],
+                f"{dtype_name} {label}", peak=peak)
+            if dtype == torch.float32 and label == "decode wave 4 slots":
+                rows["paged_decode"] = row
+        log(f"  paged_decode     {dtype_name}: empty slots exact zeros")
+
+    q = torch.zeros((1, 8, 4, 16), device=device, dtype=torch.float64)
+    bt = torch.zeros((1, 1), dtype=torch.int64, device=device)
+    for call in (lambda: ops.flash_attention(q, q, q),
+                 lambda: ops.paged_decode_attention(
+                     q[0, :1].float(), q.float(), q.float(), bt,
+                     bt[0].int())):
+        try:
+            call()
+        except TypeError as exc:
+            log(f"  operand of another dtype raises: {exc}")
+        else:
+            raise AssertionError("a CUDA operand of another dtype did not "
+                                 "raise")
+    torch.cuda.synchronize()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# serving path
+# ---------------------------------------------------------------------------
+
+
+def _serve(cfg, params, spec, prompts, *, record: bool):
+    """Serve ``prompts`` through the paged engine (greedy, SERVE_NEW tokens
+    each) with ``serve_requests``.  Times every prefill (to its first token)
+    and decode wave on the host clock (both end in a device sync); with
+    ``record``, keeps each request's per-step logits on the host."""
+    import torch
+    from repro_torch.serve import (ContinuousBatchingScheduler, Request,
+                                   ServeEngine, serve_requests)
+
+    engine = ServeEngine(cfg, params, kv_spec=spec, n_slots=SERVE_SLOTS,
+                         temperature=0.0)
+    sched = ContinuousBatchingScheduler(SERVE_SLOTS, spec)
+    logits, waves, prefills = {}, [], []
+    admit, step = engine.admit, engine.step
+
+    def timed_admit(slot, prompt, pages):
+        t0 = time.perf_counter()
+        tok = admit(slot, prompt, pages)
+        prefills.append(time.perf_counter() - t0)
+        if record:
+            logits[sched.slots[slot].request.rid] = [engine.last_logits.cpu()]
+        return tok
+
+    def timed_step():
+        live = {i: sched.slots[i].request.rid for i in sched.active_slots()}
+        t0 = time.perf_counter()
+        toks = step()
+        waves.append(time.perf_counter() - t0)
+        if record:
+            lg = engine.last_logits.cpu()
+            for i, rid in live.items():
+                logits[rid].append(lg[i])
+        return toks
+
+    engine.admit, engine.step = timed_admit, timed_step
+    reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin = serve_requests(engine, sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(len(r.tokens) for r in fin) != [SERVE_NEW] * len(prompts):
+        raise AssertionError("not every request finished with its tokens")
+    if sched.pool.n_free != spec.n_pages - 1:
+        raise AssertionError(f"pages leaked: {sched.pool.n_free} free of "
+                             f"{spec.n_pages - 1}")
+    return fin, engine, wall, waves, prefills, logits
+
+
+def _contiguous_logits(cfg, params, prompt, tokens, device):
+    """Per-step logits of the contiguous-cache path (prefill, then the
+    serve step of ``launch.steps``) fed ``tokens``: row i predicts
+    ``tokens[i]``."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+
+    serve_step = make_serve_step(cfg)
+    logits, _, caches = T.forward(
+        params, cfg, torch.tensor([prompt], device=device), mode="prefill",
+        cache_len=len(prompt) + len(tokens), last_logits_only=True)
+    out = [logits[0, -1]]
+    for i, tok in enumerate(tokens[:-1]):
+        lg, caches = serve_step(
+            params, torch.tensor([tok], device=device),
+            torch.tensor([len(prompt) + i], dtype=torch.int32, device=device),
+            caches)
+        out.append(lg[0])
+    return torch.stack(out).float().cpu()
+
+
+def _check_argmax(cont, tokens, label):
+    """Tokens equal the argmax of ``cont`` wherever its top-2 margin
+    exceeds 1e-3; returns how many steps were that clear."""
+    import torch
+    top2 = cont.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    agree = cont.argmax(-1) == torch.tensor(tokens)
+    if not bool(agree[clear].all()):
+        raise AssertionError(f"{label}: argmax differs where the margin is "
+                             f"clear")
+    return int(clear.sum())
+
+
+def serve_phase() -> dict:
+    """smollm-135m at its published widths through the paged engine;
+    returns the serving kernels' launch counts from the timed run."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_config("smollm-135m")
+    assert (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.hd) == \
+        (N_LAYERS, N_HEADS, N_KV_HEADS, HEAD_DIM)
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(PROMPT_LENGTHS[0], PROMPT_LENGTHS[1] + 1,
+                           SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    spec = paged_spec(SERVE_SLOTS, PROMPT_LENGTHS[1] + SERVE_NEW, PAGE_SIZE)
+    pool_bytes = 2 * N_LAYERS * spec.n_pages * PAGE_SIZE * N_KV_HEADS \
+        * HEAD_DIM * 4
+    log(f"  {cfg.name}: {n_params} parameters fp32 ({n_params * 4 / 1e9:.3f}"
+        f" GB), init {time.perf_counter() - t0:.1f} s; pools {spec.n_pages} "
+        f"pages of {PAGE_SIZE} ({pool_bytes / 1e9:.3f} GB); prompt lengths "
+        f"{lengths.tolist()}")
+
+    rec, _, _, _, _, logits = _serve(cfg, params, spec, prompts, record=True)
+    ops.reset_launch_counts()
+    fin, engine, wall, waves, prefills, _ = _serve(cfg, params, spec,
+                                                   prompts, record=False)
+    counts = ops.launch_counts()
+    tokens = {r.rid - fin[0].rid: r.tokens for r in fin}
+    if sorted(r.tokens for r in rec) != sorted(tokens.values()):
+        raise AssertionError("the timed run's tokens differ from the first")
+    want = {"flash_attention": N_LAYERS * SERVE_REQUESTS,
+            "paged_decode": N_LAYERS * engine.steps_run}
+    got = {n: counts[n] for n in SERVE_PATH}
+    others = {n: c for n, c in counts.items() if n not in SERVE_PATH and c}
+    if got != want or others:
+        raise AssertionError(f"serving launches {counts}, want {want}")
+    n_tok = sum(len(r.tokens) for r in fin)
+    ttft = statistics.median(r.ttft for r in fin)
+    log(f"  paged engine: {SERVE_REQUESTS} requests x {SERVE_NEW} tokens in "
+        f"{wall:.3f} s ({n_tok / wall:.1f} tokens/s); {engine.steps_run} "
+        f"decode waves, median {1e3 * statistics.median(waves):.2f} ms "
+        f"(min {1e3 * min(waves):.2f}, max {1e3 * max(waves):.2f}); prefill "
+        f"median {1e3 * statistics.median(prefills):.2f} ms; median TTFT "
+        f"{1e3 * ttft:.1f} ms (queue wait included); launches {got} "
+        f"(exactly {N_LAYERS} per prefill and per wave)")
+
+    # the contiguous path fed the engine's tokens
+    max_err, clear = 0.0, 0
+    for r in rec:
+        cont = _contiguous_logits(cfg, params, r.prompt, r.tokens, "cuda")
+        paged = torch.stack(logits[r.rid]).float()
+        max_err = max(max_err, float((cont - paged).abs().max()))
+        clear += _check_argmax(cont, r.tokens, "paged vs contiguous")
+    if max_err > 1e-3:
+        raise AssertionError(f"paged vs contiguous logits differ by "
+                             f"{max_err:.3e}")
+    log(f"  teacher-forced contiguous path vs paged engine: logits "
+        f"max_abs_err={max_err:.3e} (<= 1e-3); argmax equal at every one "
+        f"of the {clear} steps (of {n_tok}) with a top-2 margin > 1e-3")
+    _profile_wave(cfg, params, spec, prompts[:SERVE_SLOTS])
+    return got
+
+
+def _profile_wave(cfg, params, spec, prompts, n: int = 10) -> None:
+    """A full decode wave (every slot live): host wall (the wave ends in
+    its tokens' copy to the host), CUDA-event span and profiler device
+    time, side by side."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import (ContinuousBatchingScheduler, Request,
+                                   ServeEngine)
+
+    assert 3 + 2 * n < SERVE_NEW, "the waves would outrun the reservation"
+    engine = ServeEngine(cfg, params, kv_spec=spec, n_slots=SERVE_SLOTS,
+                         temperature=0.0)
+    sched = ContinuousBatchingScheduler(SERVE_SLOTS, spec)
+    for p in prompts:
+        sched.submit(Request(prompt=p, max_new_tokens=SERVE_NEW))
+    for slot, req in sched.admit(0.0):
+        engine.admit(slot, req.prompt, sched.slots[slot].pages)
+    for _ in range(3):
+        engine.step()
+    walls, spans = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        engine.step()
+        end.record()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            engine.step()
+        torch.cuda.synchronize()
+    events = [(e.self_device_time_total / n, e.count / n, e.key)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    events.sort(reverse=True)
+    device_ms = sum(e[0] for e in events) / 1e3
+    wall = statistics.median(walls)
+    span = statistics.median(spans)
+    log(f"  decode wave, {SERVE_SLOTS} live slots: {wall:.3f} ms wall "
+        f"(median of {n}; min {min(walls):.3f}, max {max(walls):.3f}), "
+        f"{span:.3f} ms CUDA-event span, {device_ms:.3f} ms device time in "
+        f"{sum(e[1] for e in events):.0f} device events per wave (busy "
+        f"{100 * device_ms / wall:.1f}% of the wall, "
+        f"{100 * device_ms / span:.1f}% of the span)")
+    for us, count, key in events[:8]:
+        log(f"    {us:9.1f} us/wave  x{count:4.0f}  {key[:90]}")
+
+
+def serve_agreement_phase() -> None:
+    """The SMOKE config's paged engine on the card against the same
+    engine on the CPU (plain versions), with the same port weights and
+    prompts: the card's greedy tokens equal the CPU's argmax wherever the
+    CPU's top-2 margin exceeds 1e-3 (teacher-forced on the card's tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (ContinuousBatchingScheduler, PagedKVSpec,
+                                   Request, ServeEngine, serve_requests)
+    from repro_torch.tree import tree_map
+
+    cfg = configs.get_config("smollm-135m", smoke=True)
+    p_cpu = T.init_params(torch.Generator().manual_seed(1), cfg)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 17, 30)]
+    spec = PagedKVSpec(page_size=4, n_pages=33, max_pages_per_slot=12)
+    served = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), p_cpu)
+        engine = ServeEngine(cfg, params, kv_spec=spec, n_slots=2)
+        fin = serve_requests(engine, ContinuousBatchingScheduler(2, spec),
+                             [Request(prompt=p, max_new_tokens=12)
+                              for p in prompts])
+        served[dev] = {tuple(r.prompt): r.tokens for r in fin}
+    clear = same = 0
+    for p in prompts:
+        card = served["cuda"][tuple(p)]
+        cont = _contiguous_logits(cfg, p_cpu, p, card, "cpu")
+        clear += _check_argmax(cont, card, "card vs CPU")
+        same += sum(a == b for a, b in zip(card, served["cpu"][tuple(p)]))
+    log(f"  card vs CPU, {cfg.name} (3 requests x 12 tokens, 2 slots): "
+        f"card tokens = CPU argmax at every one of the {clear} steps (of 36) "
+        f"with a top-2 margin > 1e-3; {same} of 36 tokens equal to the CPU "
+        f"engine's")
+
+
 def main() -> int:
     try:
         import torch
@@ -603,6 +1072,7 @@ def main() -> int:
 
     log("kernel phase:")
     rows = kernel_phase()
+    rows.update(attention_kernel_phase())
     log("main path:")
     counts = main_path_phase()
     log("profile:")
@@ -610,6 +1080,10 @@ def main() -> int:
     profile_phase({"full": None, "EF-int8": COMM_PRESETS["int8_ef"]})
     log("agreement:")
     agreement_phase()
+    # after the profile phase: its walls come before any profiler session
+    log("serving path:")
+    counts.update(serve_phase())
+    serve_agreement_phase()
 
     table = []
     for name, (source, replaces) in KERNEL_META.items():

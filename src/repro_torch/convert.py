@@ -3,7 +3,10 @@
 The JAX package keeps parameters as dicts of arrays with conv kernels in
 HWIO; the port keeps conv kernels in PyTorch's OIHW.  Node-stacked trees
 carry the node axis first in both.  Everything else (Stiefel leaves, y,
-batches) has the same layout in both packages.  The comms engine's memory
+batches) has the same layout in both packages.  The transformer's nested
+parameter dicts, its KV caches and the serving path's page pools copy leaf
+for leaf (weights ``x @ W`` as (d_in, d_out), stacked repeats on a leading
+axis, in both).  The comms engine's memory
 (``CommState`` hats, one tree per slot) converts the same way.  Inputs are
 NumPy arrays (or anything ``numpy.asarray`` takes); this module imports no
 JAX.
@@ -79,6 +82,34 @@ def comm_state_to_reference(state) -> tuple[dict, dict | None]:
     deltas = None if state.deltas is None else {
         slot: np.float32(d.item()) for slot, d in state.deltas.items()}
     return hats, deltas
+
+
+def tree_from_reference(tree, device, dtype=None):
+    """A nested dict of the JAX package's arrays (parameters, caches,
+    pools) as tensors on ``device``, copied leaf for leaf, in ``dtype``
+    (a NumPy dtype; default: each leaf's own)."""
+    if isinstance(tree, dict):
+        return {k: tree_from_reference(v, device, dtype)
+                for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=dtype)).to(device)
+
+
+def tree_to_reference(tree):
+    """The inverse of :func:`tree_from_reference`, as NumPy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_reference(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def transformer_params_from_reference(params: dict, device) -> dict:
+    """The JAX transformer's parameters (``models.transformer.init_params``,
+    stacked repeats included) as the port's fp32 tensors, no transpose."""
+    return tree_from_reference(params, device, np.float32)
+
+
+def transformer_params_to_reference(params: dict) -> dict:
+    """The inverse of :func:`transformer_params_from_reference`."""
+    return tree_to_reference(params)
 
 
 def batch_to_torch(batch: dict, device) -> dict:

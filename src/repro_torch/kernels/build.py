@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("stiefel_project", "retract", "ring_mix", "multi_hop_mix",
-           "quant_mix", "multi_hop_mix_quant")
+           "quant_mix", "multi_hop_mix_quant", "flash_attention",
+           "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

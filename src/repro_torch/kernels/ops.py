@@ -5,7 +5,8 @@
 
 There is no environment switch and no fallback: a CUDA tensor the kernel
 does not take (another dtype than float32, or than int8 for a compressed
-payload; too many nodes) raises, and so does any other device.  The
+payload, or than float32/bfloat16 for attention; too many nodes; a head
+dim above 256) raises, and so does any other device.  The
 wrappers own the operand checks, flattening and contiguity, as the JAX
 package's ``kernels/ops.py`` does; the kernel modules only allocate,
 launch and count (:func:`launch_counts`).
@@ -16,7 +17,9 @@ import math
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import multi_hop_mix as _mh
+from repro_torch.kernels import paged_decode as _pd
 from repro_torch.kernels import quant_mix as _qm
 from repro_torch.kernels import ref
 from repro_torch.kernels import retract as _rt
@@ -31,8 +34,12 @@ _KERNELS = {"stiefel_project": (_sp, "launches"),
             "ring_mix": (_rm, "launches"),
             "multi_hop_mix": (_mh, "launches"),
             "quant_mix": (_qm, "launches"),
-            "multi_hop_mix_quant": (_mh, "quant_launches")}
+            "multi_hop_mix_quant": (_mh, "quant_launches"),
+            "flash_attention": (_fa, "launches"),
+            "paged_decode": (_pd, "launches")}
 _MAX_GRID_YZ = 65535      # CUDA's limit on grid.y / grid.z
+_MAX_HEAD_DIM = 256       # the attention kernels' largest hd / hdv
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def launch_counts() -> dict[str, int]:
@@ -201,3 +208,114 @@ def multi_hop_mix_quant(q: Tensor, scale: Tensor, *, hops: int,
         return z[hops:hops + n].reshape(q.shape)
     return _mh.launch_quant(q.reshape(n, f).contiguous(), s.contiguous(),
                             hops, w_self, w_side).reshape(q.shape)
+
+
+# ---------------------------------------------------------------------------
+# attention: q (B, S, H, hd), k/v (B, T, Hkv, hd/hdv), the JAX layout
+# ---------------------------------------------------------------------------
+
+
+def _attn_card(name: str, q: Tensor, floats: tuple, ints: tuple) -> bool:
+    """:func:`_on_card` for attention: the float operands in q's dtype,
+    float32 or bfloat16, the index operands int32."""
+    dtypes = (q.dtype,) * len(floats) + (torch.int32,) * len(ints)
+    if not _on_card(name, *floats, *ints, dtypes=dtypes):
+        return False
+    if q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    return True
+
+
+def _head_dims(name: str, hd: int, hdv: int) -> None:
+    if max(hd, hdv) > _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the CUDA kernel takes head dims up to "
+                         f"{_MAX_HEAD_DIM}, got hd={hd}, hdv={hdv}")
+
+
+def _window(name: str, window: int | None) -> int:
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window={window} < 1")
+    return window or 0
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int | None = None,
+                    q_positions: Tensor | None = None,
+                    kv_positions: Tensor | None = None,
+                    softmax_scale: float | None = None) -> Tensor:
+    """Attention of q (B, S, H, hd) over k (B, T, Hkv, hd) and v
+    (B, T, Hkv, hdv); returns (B, S, H, hdv) in q's dtype.
+
+    Query head h reads kv head ``h // (H // Hkv)``.  Positions (B, S) and
+    (B, T) default to aranges; a key is usable when its position is >= 0,
+    and, when ``causal``, <= the query's, and, with a ``window``, less than
+    ``window`` behind it.  A query with no usable key gets exact zeros."""
+    b, s, h, hd = q.shape
+    t, hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    if (k.shape != (b, t, hkv, hd) or v.shape[:3] != (b, t, hkv)
+            or h % hkv):
+        raise ValueError(f"flash_attention: want q (B, S, H, hd), k "
+                         f"(B, T, Hkv, hd), v (B, T, Hkv, hdv) with Hkv | H; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    win = _window("flash_attention", window)
+    if q_positions is None:
+        q_positions = torch.arange(s, dtype=torch.int32,
+                                   device=q.device).expand(b, s)
+    if kv_positions is None:
+        kv_positions = torch.arange(t, dtype=torch.int32,
+                                    device=q.device).expand(b, t)
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    if not _attn_card("flash_attention", q, (q, k, v),
+                      (q_positions, kv_positions)):
+        return ref.blockwise_attention(
+            q, k, v, causal=causal, window=window, q_positions=q_positions,
+            kv_positions=kv_positions, softmax_scale=scale)
+    _head_dims("flash_attention", hd, hdv)
+    if min(b, s, h) < 1 or max(b, h) > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: unsupported shape "
+                         f"{tuple(q.shape)}")
+    return _fa.launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                      q_positions.expand(b, s).contiguous(),
+                      kv_positions.expand(b, t).contiguous(), causal=causal,
+                      window=win, scale=scale)
+
+
+def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                           block_table: Tensor, seq_lens: Tensor, *,
+                           window: int | None = None,
+                           softmax_scale: float | None = None) -> Tensor:
+    """One decode token per slot over a paged KV pool.
+
+    q (S, H, hd); pools (P, page_size, Hkv, hd/hdv); block_table (S, M)
+    int32 (-1 = unallocated, read as the dump page 0 and masked); seq_lens
+    (S,) int32, the valid tokens with the query at ``seq_lens - 1``.
+    Returns (S, H, hdv); a slot with ``seq_lens == 0`` gets exact zeros."""
+    s_slots, h, hd = q.shape
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    hdv = v_pages.shape[-1]
+    if (k_pages.shape[3] != hd or v_pages.shape[:3] != k_pages.shape[:3]
+            or h % hkv or block_table.ndim != 2
+            or block_table.shape[0] != s_slots
+            or seq_lens.shape != (s_slots,)):
+        raise ValueError(
+            f"paged_decode_attention: want q (S, H, hd), pools "
+            f"(P, ps, Hkv, hd/hdv) with Hkv | H, block_table (S, M), "
+            f"seq_lens (S,); got {tuple(q.shape)}, {tuple(k_pages.shape)}, "
+            f"{tuple(v_pages.shape)}, {tuple(block_table.shape)}, "
+            f"{tuple(seq_lens.shape)}")
+    win = _window("paged_decode_attention", window)
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    if not _attn_card("paged_decode_attention", q, (q, k_pages, v_pages),
+                      (block_table, seq_lens)):
+        return ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, block_table, seq_lens, window=window,
+            softmax_scale=scale)
+    _head_dims("paged_decode_attention", hd, hdv)
+    if s_slots < 1 or s_slots > _MAX_GRID_YZ:
+        raise ValueError(f"paged_decode_attention: unsupported slot count "
+                         f"{s_slots}")
+    return _pd.launch(q.contiguous(), k_pages.contiguous(),
+                      v_pages.contiguous(), block_table.contiguous(),
+                      seq_lens.contiguous(), window=win, scale=scale)

@@ -7,6 +7,10 @@ they are what ``ops.py`` runs for a tensor on the CPU.  On the card,
 a separate PyTorch call, so every elementwise result is rounded on its own
 (no FMA contraction); the ring combines, fp32 and int8, are bitwise the
 CUDA kernels'.
+
+The attention versions follow the Pallas kernels where the JAX package's
+oracles differ from them: a query row with no unmasked key comes out as
+exact zeros (the oracles' softmax gives the mean of the values there).
 """
 from __future__ import annotations
 
@@ -166,3 +170,120 @@ def quant_mix_ref(q_self: Tensor, q_left: Tensor, q_right: Tensor,
 
     return (w_self * dq(q_self, s_self)
             + w_side * (dq(q_left, s_left) + dq(q_right, s_right)))
+
+
+# ---------------------------------------------------------------------------
+# attention (q (B, S, H, hd); k/v (B, T, Hkv, hd/hdv); GQA by head groups)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _positions(q: Tensor, k: Tensor, q_positions, kv_positions):
+    b, s = q.shape[:2]
+    t = k.shape[1]
+    if q_positions is None:
+        q_positions = torch.arange(s, device=q.device).expand(b, s)
+    if kv_positions is None:
+        kv_positions = torch.arange(t, device=q.device).expand(b, t)
+    return q_positions, kv_positions
+
+
+def _attn_mask(q_pos: Tensor, kv_pos: Tensor, causal: bool,
+               window: int | None) -> Tensor:
+    """(B, S, T) bool: key usable by query.  kv positions < 0 mark empty
+    cache rows; causal keeps kv_pos <= q_pos; a window keeps
+    q_pos - kv_pos < window."""
+    qp, kp = q_pos[:, :, None], kv_pos[:, None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & ((qp - kp) < window)
+    return mask
+
+
+def attention_naive(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int | None = None, q_positions=None,
+                    kv_positions=None,
+                    softmax_scale: float | None = None) -> Tensor:
+    """Attention with the full (S, T) scores in fp32; returns (B, S, H, hdv)
+    in q's dtype.  H must be a multiple of Hkv (kv heads are shared by
+    groups of H / Hkv query heads)."""
+    b, s, h, hd = q.shape
+    t, hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    q_pos, kv_pos = _positions(q, k, q_positions, kv_positions)
+    qg = q.float().reshape(b, s, hkv, h // hkv, hd) * scale
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
+    mask = _attn_mask(q_pos, kv_pos, causal, window)[:, None, None]
+    scores = scores.masked_fill(~mask, NEG_INF)
+    # masked probabilities are zero, so a row with no key gives exact
+    # zeros, as the Pallas kernel does
+    p = torch.softmax(scores, dim=-1).masked_fill(~mask, 0.0)
+    out = torch.einsum("bhgst,bthe->bshge", p, v.float())
+    return out.reshape(b, s, h, hdv).to(q.dtype)
+
+
+def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        q_positions=None, kv_positions=None,
+                        softmax_scale: float | None = None,
+                        chunk: int = 1024) -> Tensor:
+    """Online-softmax attention streaming over KV chunks of ``chunk`` keys,
+    the arithmetic of the Pallas kernel: scaled q, fp32 scores, masked
+    probabilities set to zero, ``acc / max(l, 1e-30)`` at the end.  Same
+    signature and layouts as :func:`attention_naive`."""
+    b, s, h, hd = q.shape
+    t, hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    q_pos, kv_pos = _positions(q, k, q_positions, kv_positions)
+    qf = (q.float() * scale).reshape(b, s, hkv, h // hkv, hd)
+    m = torch.full((b, hkv, h // hkv, s), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, h // hkv, s), device=q.device)
+    acc = torch.zeros((b, hkv, h // hkv, s, hdv), device=q.device)
+    for t0 in range(0, t, chunk):
+        kb = k[:, t0:t0 + chunk].float()
+        vb = v[:, t0:t0 + chunk].float()
+        mask = _attn_mask(q_pos, kv_pos[:, t0:t0 + chunk], causal,
+                          window)[:, None, None]
+        sc = torch.einsum("bshgd,bthd->bhgst", qf, kb).masked_fill(
+            ~mask, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None]).masked_fill(~mask, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgst,bthe->bhgse", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hdv)
+    return out.to(q.dtype)
+
+
+def paged_decode_attention_ref(q: Tensor, k_pages: Tensor, v_pages: Tensor,
+                               block_table: Tensor, seq_lens: Tensor, *,
+                               window: int | None = None,
+                               softmax_scale: float | None = None) -> Tensor:
+    """One decode token per slot over a paged KV pool: gather every slot's
+    pages through the block table into a contiguous (S, M*ps, Hkv, hd)
+    view, then :func:`blockwise_attention` with positions from the page
+    layout.
+
+    q (S, H, hd); pools (P, ps, Hkv, hd/hdv); block_table (S, M) integer
+    (-1 = unallocated, read as the dump page 0 and masked); seq_lens (S,)
+    integer, the valid tokens with the query at ``seq_lens - 1``.  A slot
+    with ``seq_lens == 0`` has no key and returns exact zeros.
+    """
+    s_slots = q.shape[0]
+    ps, hkv, hd = k_pages.shape[1:]
+    hdv = v_pages.shape[-1]
+    m_pages = block_table.shape[1]
+    bt = block_table.long().clamp(min=0)
+    k = k_pages[bt].reshape(s_slots, m_pages * ps, hkv, hd)
+    v = v_pages[bt].reshape(s_slots, m_pages * ps, hkv, hdv)
+    pos = torch.arange(m_pages * ps, device=q.device)[None, :]
+    seq = seq_lens.long()[:, None]
+    kv_pos = torch.where(pos < seq, pos, -1)
+    return blockwise_attention(q[:, None], k, v, causal=True, window=window,
+                               q_positions=seq - 1, kv_positions=kv_pos,
+                               softmax_scale=softmax_scale)[:, 0]

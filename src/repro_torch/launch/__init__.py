@@ -1,1 +1,20 @@
 """Entry points of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; asking for CUDA without a card raises
+    (the port never falls back to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

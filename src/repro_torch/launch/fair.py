@@ -32,6 +32,7 @@ from repro_torch.core.gda import OPTIMIZERS, GDAHyper, broadcast_to_nodes
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.core.metric import convergence_metric
 from repro_torch.data.synthetic import ClassificationStream
+from repro_torch.launch import resolve_device, synchronize
 from repro_torch.objectives import fair
 
 RHO = 1.0
@@ -43,21 +44,6 @@ COMM_PRESETS = {
     "int8_ef": CommSpec(compressor="int8", gamma=0.95),
     "int8_ef_drop5": CommSpec(compressor="int8", gamma=0.95, drop_rate=0.05),
 }
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch device; asking for CUDA without a card raises
-    (the port never falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda is not "
-                           "available; pass device='cpu' to run on the CPU")
-    return dev
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 @dataclasses.dataclass
@@ -144,10 +130,10 @@ def run_method(name: str, steps: int, deterministic: bool, seed: int = 0,
     for t in range(steps):
         batch = run.full if deterministic \
             else batch_to_torch(run.stream.batch(t + 1), dev)
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         state, metrics = run.opt.step(state, batch)
-        _sync(dev)
+        synchronize(dev)
         step_s.append(time.perf_counter() - t0)
         if (t + 1) % eval_every == 0 or t == 0 or t == steps - 1:
             m = convergence_metric(run.problem, state.x, state.y, run.full)

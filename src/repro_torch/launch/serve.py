@@ -1,0 +1,133 @@
+"""Serving launcher of the port (``src/repro/launch/serve.py``): batched
+autoregressive decode of a dense GQA model, by default smollm-135m at its
+published widths with random weights from ``--seed``.
+
+    python -m repro_torch.launch.serve                  # paged engine, card
+    python -m repro_torch.launch.serve --legacy         # contiguous caches
+    python -m repro_torch.launch.serve --device cpu --smoke
+
+The paged path (``repro_torch.serve``: continuous batching over block-table
+KV pools) is the default; ``--legacy`` picks the contiguous-cache path
+(:func:`generate`).  Unlike the JAX launcher, a configuration the paged
+path refuses raises instead of falling back.  Runs on the card unless
+``--device cpu``; TF32 is off (the models are fp32).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.launch import resolve_device, synchronize
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models import transformer as T
+from repro_torch.serve import (ContinuousBatchingScheduler, PagedKVSpec,
+                               Request, ServeEngine, serve_requests)
+from repro_torch.serve.engine import sample_tokens
+
+
+
+def generate(cfg, params, prompt_tokens: torch.Tensor, n_new: int, *,
+             temperature: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Contiguous-cache decode: prefill (B, S) prompts, then ``n_new - 1``
+    decode steps; returns the (B, n_new) sampled tokens, greedy at
+    temperature 0, else drawn from a generator seeded with ``seed``."""
+    b, s = prompt_tokens.shape
+    dev = prompt_tokens.device
+    logits, _, caches = T.forward(params, cfg, prompt_tokens, mode="prefill",
+                                  cache_len=s + n_new, last_logits_only=True)
+    serve_step = make_serve_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = sample_tokens(logits[:, -1], gen, temperature)
+    out = [tok]
+    for i in range(n_new - 1):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+        lg, caches = serve_step(params, tok, pos, caches)
+        tok = sample_tokens(lg, gen, temperature)
+        out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+def paged_spec(batch: int, context: int, page_size: int) -> PagedKVSpec:
+    """The launcher's pool: room for twice ``batch`` slots of ``context``
+    tokens, plus the dump page."""
+    per_slot = -(-context // page_size)
+    return PagedKVSpec(page_size=page_size, n_pages=batch * per_slot * 2 + 1,
+                       max_pages_per_slot=per_slot)
+
+
+def _prompts(cfg, args, dev) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    return torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                         generator=gen).to(dev)
+
+
+def _serve_engine(cfg, params, args, dev) -> dict:
+    """The paged decode service: continuous batching over a fixed-slot
+    batch with block-table paged KV pools."""
+    spec = paged_spec(args.batch, args.prompt_len + args.new_tokens,
+                      args.page_size)
+    engine = ServeEngine(cfg, params, kv_spec=spec, n_slots=args.batch,
+                         temperature=args.temperature, seed=args.seed)
+    sched = ContinuousBatchingScheduler(args.batch, spec)
+    reqs = [Request(prompt=p.tolist(), max_new_tokens=args.new_tokens)
+            for p in _prompts(cfg, args, dev)]
+    synchronize(dev)
+    t0 = time.perf_counter()
+    fin = serve_requests(engine, sched, reqs)
+    synchronize(dev)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.tokens) for r in fin)
+    return {"arch": cfg.name, "mode": "paged", "device": str(dev),
+            "batch": args.batch, "new_tokens": args.new_tokens,
+            "wall_s": dt, "tok_per_s": n_tok / dt,
+            "decode_waves": engine.steps_run, "sample": fin[0].tokens[:8]}
+
+
+def _serve_legacy(cfg, params, args, dev) -> dict:
+    """Contiguous-cache batched decode (:func:`generate`)."""
+    prompt = _prompts(cfg, args, dev)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompt, args.new_tokens,
+                    temperature=args.temperature, seed=args.seed)
+    synchronize(dev)
+    dt = time.perf_counter() - t0
+    return {"arch": cfg.name, "mode": "legacy", "device": str(dev),
+            "batch": args.batch, "new_tokens": args.new_tokens,
+            "wall_s": dt, "tok_per_s": args.batch * args.new_tokens / dt,
+            "sample": toks[0].tolist()[:8]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="smollm-135m", choices=configs.ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the architecture's reduced SMOKE config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--legacy", action="store_true",
+                    help="the contiguous-cache decode path")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(args.seed),
+                           cfg)
+    run = _serve_legacy if args.legacy else _serve_engine
+    print(json.dumps(run(cfg, params, args, dev)))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

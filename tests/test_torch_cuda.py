@@ -7,7 +7,9 @@ machine that has only PyTorch:
     python -m pytest -q tests/test_torch_cuda.py
 
 Gates as in ``chip_smoke.py``: the ring mixes (fp32 and int8) bitwise,
-stiefel_project 1e-5 relative, fused_retract 5e-5 absolute.
+stiefel_project 1e-5 relative, fused_retract 5e-5 absolute, the attention
+kernels 2e-5 absolute in fp32 and 2e-2 in bf16 (the JAX package's gates),
+with exact zeros for query rows without keys and for empty decode slots.
 """
 from __future__ import annotations
 
@@ -120,3 +122,105 @@ def test_cuda_quant_wrappers_refuse_other_dtypes(cuda):
             call(q.float(), s, w_self=WC, w_side=WS)
         with pytest.raises(TypeError, match="float32"):
             call(q, s.double(), w_self=WC, w_side=WS)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+ATTN_GATE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, s, t, h, hkv, hd, hdv, causal, window
+    (1, 256, 256, 9, 3, 64, 64, True, None),     # smollm prefill
+    (2, 1, 288, 9, 3, 64, 64, True, None),       # contiguous decode
+    (1, 96, 160, 4, 4, 16, 16, True, None),      # ragged edges
+    (1, 64, 64, 4, 2, 32, 16, True, None),       # hd_v != hd
+    (1, 128, 128, 4, 1, 32, 32, True, 48),       # window + MQA
+    (1, 64, 80, 4, 4, 32, 32, False, None),      # non-causal
+    (1, 40, 40, 2, 1, 256, 256, True, None),     # the largest head dims
+])
+def test_cuda_flash_attention_vs_plain(cuda, case, dtype):
+    b, s, t, h, hkv, hd, hdv, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(s + t)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, t, hkv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, t, hkv, hdv), generator=gen, device=cuda).to(dtype)
+    qpos = torch.arange(t - s, t, dtype=torch.int32,
+                        device=cuda).expand(b, s)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_positions=qpos)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.blockwise_attention(q, k, v, causal=causal, window=window,
+                                   q_positions=qpos)
+    assert got.dtype == dtype and got.shape == (b, s, h, hdv)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_GATE[dtype]
+
+
+def test_cuda_flash_rows_without_keys_are_exact_zeros(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, 256, 9, 64), generator=gen, device=cuda)
+               for _ in range(3))
+    k, v = k[:, :, :3], v[:, :, :3]
+    pos = torch.arange(256, dtype=torch.int32, device=cuda)[None]
+    kvpos = torch.where(pos < 64, -1, pos)          # rows 0..63 see nothing
+    got = ops.flash_attention(q, k, v, q_positions=pos, kv_positions=kvpos)
+    want = ref.blockwise_attention(q, k, v, q_positions=pos,
+                                   kv_positions=kvpos)
+    assert torch.all(got[:, :64] == 0)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+def _paged_inputs(cuda, dtype, seq, g, m, ps=16, hkv=3, hd=64, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = len(seq)
+    n_pages = s * m + 1
+    q = torch.randn((s, hkv * g, hd), generator=gen, device=cuda).to(dtype)
+    kp = torch.randn((n_pages, ps, hkv, hd), generator=gen,
+                     device=cuda).to(dtype)
+    vp = torch.randn((n_pages, ps, hkv, hd), generator=gen,
+                     device=cuda).to(dtype)
+    bt = torch.full((s, m), -1, dtype=torch.int32)
+    order = torch.randperm(n_pages - 1, generator=torch.Generator()
+                           .manual_seed(seed)) + 1
+    used = 0
+    for i, sl in enumerate(seq):
+        n = -(-sl // ps)
+        bt[i, :n] = order[used:used + n]
+        used += n
+    return (q, kp, vp, bt.to(cuda),
+            torch.tensor(seq, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,window", [(3, None), (1, None), (3, 48), (2, 5)])
+def test_cuda_paged_decode_vs_plain(cuda, dtype, g, window):
+    q, kp, vp, bt, seq = _paged_inputs(cuda, dtype, [288, 37, 0, 161, 1, 16],
+                                       g, m=18)
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, kp, vp, bt, seq, window=window)
+    assert ops.launch_counts()["paged_decode"] == 1
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, seq, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.all(got[2] == 0)                   # the empty slot
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_GATE[dtype]
+
+
+def test_cuda_attention_wrappers_refuse_other_dtypes(cuda):
+    x = torch.zeros(1, 8, 4, 16, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(x, x, x)
+    with pytest.raises(TypeError, match="float32"):
+        ops.flash_attention(x.float(), x.float(), x.half())
+    q, kp, vp, bt, seq = _paged_inputs(cuda, torch.float32, [5], 1, m=2)
+    with pytest.raises(TypeError, match="int32"):
+        ops.paged_decode_attention(q, kp, vp, bt.long(), seq)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.paged_decode_attention(q.double(), kp.double(), vp.double(), bt,
+                                   seq)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        big = torch.zeros(1, 4, 2, 288, device=cuda)
+        ops.flash_attention(big, big, big)

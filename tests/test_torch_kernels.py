@@ -21,6 +21,12 @@ NumPy inputs.  Tolerances:
   products, multi_hop_mix_quant within one int8 step (``max|out| / 127``,
   the JAX package's own gate for its kernel), since a value that moves by
   one rounding can requantize one step apart.
+* flash_attention / paged_decode_attention (plain versions): 2e-5
+  absolute in fp32 and 2e-2 in bf16, the JAX package's own gates, against
+  the Pallas kernels in interpret mode on every query row, and against the
+  JAX oracles (``attention_naive``, ``paged_decode_attention_ref``) on rows
+  with at least one usable key: where a row has none, the Pallas kernels
+  and the port give exact zeros, the JAX oracle the mean of the values.
 
 The CUDA kernels themselves are tested in ``test_torch_cuda.py``.
 """
@@ -38,6 +44,7 @@ from repro.comms.backend import StackedBackend as JStacked  # noqa: E402
 from repro.core.gossip import GossipSpec as JGossip  # noqa: E402
 from repro.geometry import stiefel as jst  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import paged_decode as jpd  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.comms import compress  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -233,9 +240,14 @@ def test_cpu_calls_launch_nothing():
     q, s = compress.quantize_det(x)
     ops.quant_mix(q, s, w_self=WC, w_side=WS)
     ops.multi_hop_mix_quant(q, s, hops=3, w_self=WC, w_side=WS)
+    ops.flash_attention(x[None], x[None], x[None])
+    ops.paged_decode_attention(x, x[None], x[None],
+                               torch.zeros(2, 1, dtype=torch.int32),
+                               torch.ones(2, dtype=torch.int32))
     assert ops.launch_counts() == {"stiefel_project": 0, "fused_retract": 0,
                                    "ring_mix": 0, "multi_hop_mix": 0,
-                                   "quant_mix": 0, "multi_hop_mix_quant": 0}
+                                   "quant_mix": 0, "multi_hop_mix_quant": 0,
+                                   "flash_attention": 0, "paged_decode": 0}
 
 
 @pytest.mark.parametrize("call", [
@@ -247,6 +259,11 @@ def test_cpu_calls_launch_nothing():
                             w_side=WS),
     lambda x: ops.multi_hop_mix_quant(x.to(torch.int8), x[:, 0, 0], hops=2,
                                       w_self=WC, w_side=WS),
+    lambda x: ops.flash_attention(x[None], x[None], x[None]),
+    lambda x: ops.paged_decode_attention(
+        x, x[None], x[None], torch.zeros(4, 1, dtype=torch.int32,
+                                         device=x.device),
+        torch.ones(4, dtype=torch.int32, device=x.device)),
 ])
 def test_no_silent_fallback_for_other_devices(call):
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -269,3 +286,182 @@ def test_operand_checks():
     with pytest.raises(ValueError, match="hops"):
         ops.multi_hop_mix_quant(q, torch.ones(3, 1), hops=0, w_self=WC,
                                 w_side=WS)
+
+
+# ---------------------------------------------------------------------------
+# attention: flash (prefill / contiguous decode) and paged decode
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [   # tests/test_kernels.py ATTN_CASES, dtypes by name
+    # b, s, t, h, hkv, hd, hdv, causal, window, dtype
+    (1, 128, 128, 4, 4, 32, 32, True, None, "float32"),
+    (2, 64, 64, 8, 2, 64, 64, True, None, "float32"),
+    (1, 128, 128, 4, 1, 32, 32, True, 48, "float32"),     # window + MQA
+    (2, 1, 256, 8, 2, 64, 64, True, None, "float32"),     # decode
+    (1, 96, 160, 4, 4, 16, 16, True, None, "float32"),    # ragged
+    (1, 64, 64, 4, 2, 32, 16, True, None, "float32"),     # hd_v != hd_k
+    (1, 64, 64, 4, 4, 32, 32, False, None, "float32"),    # non-causal
+    (1, 64, 64, 4, 4, 32, 32, True, None, "bfloat16"),    # bf16
+]
+
+
+def _attn_gate(dtype: str) -> float:
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _as(x, dtype: str):
+    """One fp32 NumPy array as the JAX and the port tensors of ``dtype``
+    (both round fp32 to bf16 to nearest even: the same bits)."""
+    return (jnp.asarray(x).astype(getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _flash_pair(q, k, v, qpos, kvpos, causal, window, dtype):
+    """(port plain version, JAX Pallas kernel in interpret mode, JAX
+    naive oracle) on the same inputs, as fp32 NumPy."""
+    jq, tq = _as(q, dtype)
+    jk, tk = _as(k, dtype)
+    jv, tv = _as(v, dtype)
+    jpos = [None if p is None else jnp.asarray(p) for p in (qpos, kvpos)]
+    tpos = [None if p is None else torch.from_numpy(p) for p in (qpos, kvpos)]
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              q_positions=tpos[0], kv_positions=tpos[1])
+    pallas = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                  q_positions=jpos[0], kv_positions=jpos[1],
+                                  impl="pallas_interpret", block_q=32,
+                                  block_kv=64)
+    naive = jref.attention_naive(jq, jk, jv, causal=causal, window=window,
+                                 q_positions=jpos[0], kv_positions=jpos[1])
+    naive_port = ref.attention_naive(tq, tk, tv, causal=causal,
+                                     window=window, q_positions=tpos[0],
+                                     kv_positions=tpos[1])
+    return _f32(got), _f32(pallas), _f32(naive), _f32(naive_port)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_vs_pallas_and_oracle(case):
+    b, s, t, h, hkv, hd, hdv, causal, window, dtype = case
+    rng = np.random.default_rng(abs(hash(case[:9])) % 2 ** 31)
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, t, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, t, hkv, hdv)).astype(np.float32)
+    qpos = (np.broadcast_to(np.arange(t - s, t, dtype=np.int32), (b, s))
+            .copy() if s < t else None)
+    got, pallas, naive, naive_port = _flash_pair(q, k, v, qpos, None, causal,
+                                                 window, dtype)
+    gate = _attn_gate(dtype)
+    assert got.shape == (b, s, h, hdv)
+    np.testing.assert_allclose(got, pallas, atol=gate)
+    np.testing.assert_allclose(got, naive, atol=gate)   # every row has keys
+    np.testing.assert_allclose(naive_port, naive, atol=gate)
+
+
+def test_flash_attention_ring_cache_positions():
+    """Ring-buffer cache: kv positions out of order still mask rightly."""
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(1, 1, 2, 16)).astype(np.float32)
+    k = rng.normal(size=(1, 64, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(1, 64, 2, 16)).astype(np.float32)
+    kvpos = np.roll(np.arange(64, 128, dtype=np.int32)[None], 7, axis=1)
+    qpos = np.full((1, 1), 127, np.int32)
+    got, pallas, naive, _ = _flash_pair(q, k, v, qpos, kvpos, True, None,
+                                        "float32")
+    np.testing.assert_allclose(got, pallas, atol=2e-5)
+    np.testing.assert_allclose(got, naive, atol=2e-5)
+
+
+def test_flash_attention_rows_without_keys_are_zero():
+    """Query rows with no usable key (their keys lie ahead or are empty):
+    exact zeros, as the Pallas kernel gives; the others as the oracle."""
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(1, 8, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(1, 16, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(1, 16, 2, 16)).astype(np.float32)
+    kvpos = np.concatenate([np.full(8, -1), np.arange(8, 16)])[None] \
+        .astype(np.int32)
+    qpos = np.arange(4, 12, dtype=np.int32)[None]
+    got, pallas, naive, naive_port = _flash_pair(q, k, v, qpos, kvpos, True,
+                                                 None, "float32")
+    empty = qpos[0] < 8
+    assert not np.any(got[:, empty]) and not np.any(naive_port[:, empty])
+    np.testing.assert_allclose(got, pallas, atol=2e-5)
+    np.testing.assert_allclose(got[:, ~empty], naive[:, ~empty], atol=2e-5)
+    assert np.abs(naive[:, empty]).max() > 0.01    # the oracle's mean
+
+
+def _paged_case(seed=0, s=5, hkv=2, g=1, hd=32, ps=8, m=6):
+    """tests/test_serve.py's paged case, as NumPy."""
+    rng = np.random.default_rng(seed)
+    n_pages = s * m + 1
+    q = rng.normal(size=(s, hkv * g, hd)).astype(np.float32)
+    kp = rng.normal(size=(n_pages, ps, hkv, hd)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, ps, hkv, hd)).astype(np.float32)
+    seq = np.array([1, 7, 13, 0, min(m * ps, 40)][:s], np.int32)
+    bt = np.full((s, m), -1, np.int32)
+    nxt = 1
+    for i, sl in enumerate(seq):
+        for j in range(-(-int(sl) // ps)):
+            bt[i, j] = nxt
+            nxt += 1
+    return q, kp, vp, bt, seq
+
+
+def _paged_port(q, kp, vp, bt, seq, window=None):
+    return ops.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(bt), torch.from_numpy(seq), window=window).numpy()
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("window", [None, 5])
+def test_paged_decode_vs_pallas_and_oracle(g, window):
+    q, kp, vp, bt, seq = _paged_case(g=g)
+    got = _paged_port(q, kp, vp, bt, seq, window)
+    s, h, hd = q.shape
+    hkv = kp.shape[2]
+    pallas = np.asarray(jpd.paged_decode_shgd(
+        jnp.asarray(q).reshape(s, hkv, g, hd), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(bt), jnp.asarray(seq), window=window,
+        interpret=True)).reshape(s, h, hd)
+    oracle = np.asarray(jref.paged_decode_attention_ref(
+        *map(jnp.asarray, (q, kp, vp, bt, seq)), window=window))
+    np.testing.assert_allclose(got, pallas, atol=2e-5)
+    np.testing.assert_allclose(got, oracle, atol=2e-5)
+
+
+def test_paged_decode_empty_slot_zeros():
+    q, kp, vp, bt, seq = _paged_case()
+    assert seq[3] == 0
+    got = _paged_port(q, kp, vp, bt, seq)
+    pallas = np.asarray(jops.paged_decode_attention(
+        *map(jnp.asarray, (q, kp, vp, bt, seq)), impl="pallas_interpret"))
+    assert not np.any(got[3]) and not np.any(pallas[3])
+
+
+def test_paged_decode_ragged_table():
+    """A table width the JAX kernel's pages_per_block=2 does not divide
+    (its wrapper pads with -1 columns); the port walks the pages as they
+    are."""
+    q, kp, vp, bt, seq = _paged_case(m=5)
+    got = _paged_port(q, kp, vp, bt, seq)
+    pallas = np.asarray(jops.paged_decode_attention(
+        *map(jnp.asarray, (q, kp, vp, bt, seq)), impl="pallas_interpret",
+        pages_per_block=2))
+    np.testing.assert_allclose(got, pallas, atol=2e-5)
+
+
+def test_attention_operand_checks():
+    x = torch.zeros(1, 4, 6, 8)
+    with pytest.raises(ValueError, match=r"with Hkv \| H"):
+        ops.flash_attention(x, torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 8))
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(x, x, x, window=0)
+    q, kp, vp, bt, seq = map(torch.from_numpy, _paged_case())
+    with pytest.raises(ValueError, match="block_table"):
+        ops.paged_decode_attention(q, kp, vp, bt[:2], seq)
