@@ -14,8 +14,12 @@
    events (median after warm-up) beside the least time the card could take,
    and for the fp32 ring mixes beside one ``torch.matmul`` by W^k (the
    library call that computes the same function, up to rounding; no single
-   PyTorch call computes the int8 ones).  A CUDA operand of another dtype
-   must raise, not fall back.  The attention kernels in fp32 and bf16
+   PyTorch call computes the int8 ones).  The fp32 ring mixes run as the
+   main path calls them, one grouped call per mixed tree, and
+   multi_hop_mix also on a 40-node ring (its shared-memory kernel); the
+   registers and occupancy of its register kernel at n = 20 are printed.
+   A CUDA operand of another dtype must raise, not fall back.  The
+   attention kernels in fp32 and bf16
    (gates 2e-5 and 2e-2 absolute, the JAX package's): flash_attention at
    smollm-135m's prefill (S=256) and contiguous-decode (S=1, T=288)
    shapes, at S=T=4096 causal and with window 48, and non-causal, beside
@@ -34,11 +38,12 @@
      at k = 1 for 30 steps, the same with ``quant_hops="all"`` at k = 67
      for 5 steps, and the 5%-drop channel at k = 1 for 10 steps;
    losses finite, Stiefel residual <= 1e-4, every kernel of the path
-   launched (the int8 kernels exactly as often as the steps need).  Then a
-   profile of a DRGDA k = 1 step and of an EF-int8 k = 1 step (wall time,
-   device time and busy share, the kernels that take the most), and small
-   DRGDA runs on the card against the same runs on the CPU (plain
-   versions), full precision and EF-int8.
+   launched, and the ring mixes and the int8 kernels exactly as often as
+   the steps need (one grouped ring call per mixed tree).  Then a profile
+   of a DRGDA k = 1 step, an EF-int8 k = 1 step and a DRGDA k = 67 step
+   (wall time, device time and busy share, the kernels that take the
+   most), and small DRGDA runs on the card against the same runs on the
+   CPU (plain versions), full precision and EF-int8.
 5. Serving path: smollm-135m at its published widths (30 layers, fp32,
    random weights from a seed) through the paged engine
    (``repro_torch.serve``): 8 requests with ragged prompts of 24-256
@@ -193,17 +198,30 @@ def _quant_cost(shape, hops):
             n * 1 + shape[0] * 4 + n * 4)
 
 
+def _flat(results) -> list:
+    """The outputs of a list of calls, a grouped call's list spread out."""
+    out = []
+    for r in results:
+        out.extend(r if isinstance(r, (list, tuple)) else [r])
+    return out
+
+
 def run_case(name, calls, plain_calls, gate, costs, label,
              library_calls=None, peak=PEAK_FLOPS, lib_gate=1e-4):
     """calls/plain_calls/library_calls: lists of thunks over the same
-    inputs; library_calls, where given, are one PyTorch call each that
-    computes the same function up to rounding, within ``lib_gate`` of the
-    plain version relative to its largest value.  ``peak``: the card's
-    operation rate for the inputs' type."""
+    inputs, each returning one output or (a grouped call) a list of them,
+    the same outputs in the same order in all three; library_calls, where
+    given, are one PyTorch call each that computes the same function up to
+    rounding, within ``lib_gate`` of the plain version relative to its
+    largest value.  ``peak``: the card's operation rate for the inputs'
+    type."""
     import torch
-    outs = [c() for c in calls]
+    outs = _flat([c() for c in calls])
     torch.cuda.synchronize()
-    want = [p() for p in plain_calls]
+    want = _flat([p() for p in plain_calls])
+    if len(outs) != len(want):
+        raise AssertionError(f"{name} {label}: {len(outs)} outputs, the "
+                             f"plain version has {len(want)}")
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(outs, want))
     scale = max(float(b.float().abs().max()) for b in want)
@@ -212,8 +230,8 @@ def run_case(name, calls, plain_calls, gate, costs, label,
     plain_ms = time_ms(lambda: [p() for p in plain_calls])
     library_ms, lib_txt = None, ""
     if library_calls is not None:
-        lib_err = max(float((lc().float() - b.float()).abs().max())
-                      for lc, b in zip(library_calls, want))
+        lib_err = max(float((a.float() - b.float()).abs().max()) for a, b
+                      in zip(_flat([lc() for lc in library_calls]), want))
         # the library call rounds in another order (one product by
         # W^k against k rounded hops; bf16 probabilities in SDPA): it
         # only has to compute the same function, which lib_gate shows
@@ -254,6 +272,7 @@ def kernel_phase(device="cuda") -> dict:
     import numpy as np
     import torch
     from repro_torch.core.gossip import ring_matrix
+    from repro_torch.kernels import multi_hop_mix as _mh
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -278,25 +297,34 @@ def kernel_phase(device="cuda") -> dict:
             run_case(name, [lambda: op(a, b)], [lambda: plain(a, b)], gate,
                      [cost(shape)], f"stress {shape}")
 
-    # -- the library call of the ring mixes: W^k x as one fp32 GEMM, with
-    # W^k taken in float64 and cast, as the dense mix path does it
-    w_ring = ring_matrix(N_NODES, wc)
-
+    # -- the library call of the ring mixes: W^k x as one fp32 GEMM per
+    # leaf, with W^k taken in float64 and cast, as the dense mix path does
     def library(xs, k):
-        wk = torch.as_tensor(np.linalg.matrix_power(w_ring, k),
-                             dtype=torch.float32, device=device)
-        return [lambda x=x: torch.matmul(wk, x.view(N_NODES, -1)
-                                         ).view(x.shape) for x in xs]
+        wk = {n: torch.as_tensor(
+            np.linalg.matrix_power(ring_matrix(n, wc), k),
+            dtype=torch.float32, device=device)
+            for n in {x.shape[0] for x in xs}}
+        return [lambda x=x: torch.matmul(wk[x.shape[0]], x.view(
+            x.shape[0], -1)).view(x.shape) for x in xs]
 
-    # -- ring_mix: one step mixes x, u (4 leaves each), y and v ------------
-    leaves = X_LEAVES * 2 + [Y_LEAF] * 2
-    xs = [torch.randn(s, generator=gen, device=device) for s in leaves]
+    def trees(n, n_trees):
+        """``n_trees`` trees of x's leaves on an n-node ring, then y alone:
+        the grouped calls of one step's mixes."""
+        return ([[torch.randn((n, *s[1:]), generator=gen, device=device)
+                  for s in X_LEAVES] for _ in range(n_trees)]
+                + [[torch.randn((n, *Y_LEAF[1:]), generator=gen,
+                                device=device)]])
+
+    # -- ring_mix: one step mixes x and u (4 leaves each), y and v: four
+    # grouped calls, beside ten GEMMs
+    groups = trees(N_NODES, 2) + trees(N_NODES, 0)
+    xs = _flat(groups)
     rows["ring_mix"] = run_case(
-        "ring_mix", [lambda x=x: ops.ring_mix(x, w_self=wc, w_side=ws)
-                     for x in xs],
+        "ring_mix", [lambda g=g: ops.ring_mix_leaves(g, w_self=wc, w_side=ws)
+                     for g in groups],
         [lambda x=x: ref.ring_mix_ref(x, x.roll(1, 0), x.roll(-1, 0), wc, ws)
-         for x in xs], bitwise, [_mix_cost(s, 1) for s in leaves],
-        "main step 10 leaves", library(xs, 1))
+         for x in xs], bitwise, [_mix_cost(x.shape, 1) for x in xs],
+        "main step 4 calls, 10 leaves", library(xs, 1))
     big = torch.randn((N_NODES, 1 << 20), generator=gen, device=device)
     run_case("ring_mix", [lambda: ops.ring_mix(big, w_self=wc, w_side=ws)],
              [lambda: ref.ring_mix_ref(big, big.roll(1, 0), big.roll(-1, 0),
@@ -311,15 +339,35 @@ def kernel_phase(device="cuda") -> dict:
             z = ref.ring_mix_ref(z, z.roll(1, 0), z.roll(-1, 0), wc, ws)
         return z
 
-    leaves = X_LEAVES * 2 + [Y_LEAF]
-    xs = [torch.randn(s, generator=gen, device=device) for s in leaves]
+    def grouped_hops(groups, k):
+        return [lambda g=g: ops.multi_hop_mix_leaves(g, hops=k, w_self=wc,
+                                                     w_side=ws)
+                for g in groups]
+
+    # the main step: x, u and y, three grouped calls beside nine GEMMs
+    groups = trees(N_NODES, 2)
+    xs = _flat(groups)
     rows["multi_hop_mix"] = run_case(
-        "multi_hop_mix",
-        [lambda x=x: ops.multi_hop_mix(x, hops=K_THEOREM1, w_self=wc,
-                                       w_side=ws) for x in xs],
+        "multi_hop_mix", grouped_hops(groups, K_THEOREM1),
         [lambda x=x: hops_plain(x, K_THEOREM1) for x in xs], bitwise,
-        [_mix_cost(s, K_THEOREM1) for s in leaves],
-        f"main step k={K_THEOREM1}, 9 leaves", library(xs, K_THEOREM1))
+        [_mix_cost(x.shape, K_THEOREM1) for x in xs],
+        f"main step k={K_THEOREM1}, 3 calls, 9 leaves",
+        library(xs, K_THEOREM1))
+    regs, blocks = _mh.resources(N_NODES)
+    width = _mh.block_width(N_NODES)
+    log(f"  multi_hop_mix    register kernel N={N_NODES}: {regs} registers "
+        f"a thread, {blocks} blocks of {width} threads per SM = "
+        f"{blocks * width // 32} of 64 warps")
+    # the shared-memory kernel (n > 32): one step's x and y trees on a
+    # 40-node ring
+    groups = trees(40, 1)
+    xs = _flat(groups)
+    for k in (1, K_THEOREM1):
+        run_case("multi_hop_mix", grouped_hops(groups, k),
+                 [lambda x=x, k=k: hops_plain(x, k) for x in xs], bitwise,
+                 [_mix_cost(x.shape, k) for x in xs],
+                 f"n=40 (shared memory) 2 calls, 5 leaves k={k}",
+                 library(xs, k))
     for k in (1, 3, K_THEOREM1):
         run_case("multi_hop_mix",
                  [lambda k=k: ops.multi_hop_mix(big, hops=k, w_self=wc,
@@ -476,34 +524,42 @@ def main_path_phase() -> dict:
     launch count from the path it belongs to."""
     from repro_torch.launch.fair import COMM_PRESETS
 
+    # per step: one grouped ring call for each mixed tree, x, y, u and v
+    # (core/gda.py), with k hops for x, y and u and one hop for v
     full = _run_path("full", (
-        ("drgda", 30, True, 1, None, {}),
-        ("drsgda", 30, False, 1, None, {}),
-        ("drgda", 5, True, K_THEOREM1, None, {})), FULL_PATH)
+        ("drgda", 30, True, 1, None, {"ring_mix": 4, "multi_hop_mix": 0}),
+        ("drsgda", 30, False, 1, None, {"ring_mix": 4, "multi_hop_mix": 0}),
+        ("drgda", 5, True, K_THEOREM1, None,
+         {"ring_mix": 1, "multi_hop_mix": 3})), FULL_PATH)
     int8 = COMM_PRESETS["int8_ef"]
     int8_all = dataclasses.replace(int8, quant_hops="all")
     # per step: one compressed first hop for each of the 10 leaves of x, y,
-    # u and v; under quant_hops="all" at k > 1 one tail launch for each of
-    # the 9 leaves of x, y and u (v mixes with one hop)
+    # u and v, and one grouped error-feedback hop of each of the 4 hats;
+    # under quant_hops="all" at k > 1 one tail launch for each of the 9
+    # leaves of x, y and u (v mixes with one hop).  The drop channel mixes
+    # by einsum.
     ef = _run_path("int8", (
-        ("drgda", 30, True, 1, int8, {"quant_mix": 10,
+        ("drgda", 30, True, 1, int8, {"quant_mix": 10, "ring_mix": 4,
                                       "multi_hop_mix_quant": 0}),
         ("drgda", 5, True, K_THEOREM1, int8_all,
-         {"quant_mix": 10, "multi_hop_mix_quant": 9}),
+         {"quant_mix": 10, "ring_mix": 4, "multi_hop_mix_quant": 9,
+          "multi_hop_mix": 0}),
         ("drgda", 10, True, 1, COMM_PRESETS["int8_ef_drop5"],
-         {"quant_mix": 0, "multi_hop_mix_quant": 0})), INT8_PATH)
+         {"quant_mix": 0, "ring_mix": 0, "multi_hop_mix_quant": 0})),
+        INT8_PATH)
     return {name: (full if name in FULL_PATH else ef)[name]
             for name in KERNEL_META if name not in SERVE_PATH}
 
 
 OWN_KERNELS = ("gram_partial_kernel", "sym_reduce_kernel", "apply_kernel",
-               "finalize_kernel", "ring_mix_kernel", "ring_hops_kernel",
+               "finalize_kernel", "ring_mix_group_kernel",
+               "ring_hops_reg_kernel", "ring_hops_smem_kernel",
                "quant_mix_kernel", "quant_hops_kernel")
 
 
 def profile_phase(comms: dict, steps: int = 10) -> None:
-    """Where a DRGDA k=1 main-path step spends its time, for each
-    ``label: comm`` of ``comms``: the step's wall time (median of
+    """Where a DRGDA main-path step spends its time, for each
+    ``label: (comm, k)`` of ``comms``: the step's wall time (median of
     synchronized steps, as ``run_method`` times them), the device time of
     its kernels under ``torch.profiler``, and the kernels that take the
     most.
@@ -518,9 +574,9 @@ def profile_phase(comms: dict, steps: int = 10) -> None:
     from repro_torch.launch.fair import prepare
 
     runs, states = {}, {}
-    for label, comm in comms.items():
+    for label, (comm, k) in comms.items():
         runs[label] = prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
-                              k_steps=1, device="cuda", comm=comm)
+                              k_steps=k, device="cuda", comm=comm)
         states[label] = runs[label].state
         for _ in range(3):
             states[label], _ = runs[label].opt.step(states[label],
@@ -557,7 +613,7 @@ def profile_phase(comms: dict, steps: int = 10) -> None:
                      if any(name in k[2] for name in OWN_KERNELS))
         step_us = before[label]
         wall_us = statistics.median(step_us)
-        log(f"  {label} drgda k=1 step: {wall_us:.1f} us wall without the "
+        log(f"  {label} drgda step: {wall_us:.1f} us wall without the "
             f"profiler (median of {steps} synchronized steps; min "
             f"{min(step_us):.1f}, max {max(step_us):.1f}); "
             f"{device_us:.1f} us of device time in {launches:.0f} kernels "
@@ -1077,7 +1133,9 @@ def main() -> int:
     counts = main_path_phase()
     log("profile:")
     from repro_torch.launch.fair import COMM_PRESETS
-    profile_phase({"full": None, "EF-int8": COMM_PRESETS["int8_ef"]})
+    profile_phase({"full k=1": (None, 1),
+                   "EF-int8 k=1": (COMM_PRESETS["int8_ef"], 1),
+                   f"full k={K_THEOREM1}": (None, K_THEOREM1)})
     log("agreement:")
     agreement_phase()
     # after the profile phase: its walls come before any profiler session

@@ -4,8 +4,9 @@ Mirrors ``StackedBackend`` of ``src/repro/comms/backend.py``.  Ring hops go
 through the port's kernels (``ops`` picks the CUDA kernel for a tensor on
 the card, the plain version on the CPU):
 
-  * ``mix`` with ``steps == 1``       -> one ``ring_mix`` launch per leaf;
-  * ``mix`` with ``steps > 1``        -> one ``multi_hop_mix`` launch per leaf;
+  * ``mix`` with ``steps == 1``       -> one ``ring_mix`` launch per tree;
+  * ``mix`` with ``steps > 1``        -> one ``multi_hop_mix`` launch per
+    tree (per 16 leaves of it);
   * ``quant_ring_hop`` (int8 payload) -> one ``quant_mix`` launch;
   * ``quant_ring_hops`` (all-hop int8) -> ``quantize_det``, then one
     ``multi_hop_mix_quant`` launch for every hop.
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.comms.compress import quantize_det
 from repro_torch.kernels import ops
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
 def dense_power(spec, steps: int) -> np.ndarray:
@@ -34,22 +35,30 @@ def dense_power(spec, steps: int) -> np.ndarray:
 
 
 def ring_hops(tree, steps: int, self_weight: float):
-    """``steps`` exact ring hops of a node-stacked tree through the ring
-    kernels (the two-node ring keeps ``gossip.mix_ring``'s expression)."""
+    """``steps`` exact ring hops of a node-stacked tree: every leaf of more
+    than two nodes through ONE grouped ring kernel call (``ring_mix_leaves``
+    for one hop, ``multi_hop_mix_leaves`` for more); the two-node ring keeps
+    ``gossip.mix_ring``'s expression."""
     from repro_torch.core import gossip as G
     if steps == 0:
         return tree
     wc = self_weight
     ws = (1.0 - wc) / 2.0
-
-    def leaf(x):
-        if x.shape[0] <= 2:
-            return G.mix_ring(x, steps=steps, self_weight=wc)
-        if steps == 1:
-            return ops.ring_mix(x, w_self=wc, w_side=ws)
-        return ops.multi_hop_mix(x, hops=steps, w_self=wc, w_side=ws)
-
-    return tree_map(leaf, tree)
+    leaves, unflatten = tree_flatten(tree)
+    out, ring = list(leaves), []
+    for j, x in enumerate(leaves):
+        if x.shape[0] > 2:
+            ring.append(j)
+        else:
+            out[j] = G.mix_ring(x, steps=steps, self_weight=wc)
+    if ring:
+        xs = [leaves[j] for j in ring]
+        mixed = (ops.ring_mix_leaves(xs, w_self=wc, w_side=ws) if steps == 1
+                 else ops.multi_hop_mix_leaves(xs, hops=steps, w_self=wc,
+                                               w_side=ws))
+        for j, m in zip(ring, mixed):
+            out[j] = m
+    return unflatten(out)
 
 
 def _weights(spec) -> tuple[float, float]:

@@ -133,32 +133,61 @@ def _nodes(name: str, x: Tensor) -> tuple[int, int]:
     return x.shape[0], x.numel() // x.shape[0]
 
 
+def _node_leaves(name: str, xs) -> bool:
+    """Checks a list of node-stacked leaves with one node count; then
+    :func:`_on_card` over all of them."""
+    if not isinstance(xs, (list, tuple)) or not xs:
+        raise ValueError(f"{name}: want a non-empty list of node-stacked "
+                         f"leaves, got {xs!r}")
+    n = _nodes(name, xs[0])[0]
+    for x in xs[1:]:
+        if _nodes(name, x)[0] != n:
+            raise ValueError(f"{name}: leaves of {n} and {x.shape[0]} nodes "
+                             f"in one call")
+    return _on_card(name, *xs)
+
+
+def ring_mix_leaves(xs: list[Tensor], *, w_self: float,
+                    w_side: float) -> list[Tensor]:
+    """One ring hop ``wc*x[i] + ws*(x[i-1] + x[i+1])`` of each node-stacked
+    leaf of ``xs`` (neighbours wrapped mod n; every leaf with the same n,
+    on one device).  Returns a list of the same shapes.  On the card, ONE
+    launch for every 16 leaves (``leaves.MAX_LEAVES``), whose outputs are
+    views of one buffer."""
+    if not _node_leaves("ring_mix", xs):
+        return [ref.ring_mix_ref(x, x.roll(1, 0), x.roll(-1, 0), w_self,
+                                 w_side) for x in xs]
+    return _rm.launch([x.contiguous() for x in xs], w_self, w_side)
+
+
 def ring_mix(x: Tensor, *, w_self: float, w_side: float) -> Tensor:
-    """One ring hop ``wc*x[i] + ws*(x[i-1] + x[i+1])`` of a node-stacked
-    leaf, neighbours wrapped mod n."""
-    n, f = _nodes("ring_mix", x)
-    if not _on_card("ring_mix", x):
-        return ref.ring_mix_ref(x, x.roll(1, 0), x.roll(-1, 0),
-                                w_self, w_side)
-    return _rm.launch(x.reshape(n, f).contiguous(), w_self,
-                      w_side).reshape(x.shape)
+    """:func:`ring_mix_leaves` of one leaf."""
+    return ring_mix_leaves([x], w_self=w_self, w_side=w_side)[0]
+
+
+def multi_hop_mix_leaves(xs: list[Tensor], *, hops: int, w_self: float,
+                         w_side: float) -> list[Tensor]:
+    """``hops`` ring hops of each node-stacked leaf of ``xs``; bitwise
+    ``hops`` repeated :func:`ring_mix` calls.  On the card, ONE launch for
+    every 16 leaves; the kernel is chosen by n only: a ring of up to 32
+    nodes (``multi_hop_mix.MAX_REG_ROWS``) keeps each column in registers,
+    a larger one in shared memory.  The plain version is the JAX
+    package's halo-panel oracle on the wrapped panel."""
+    if hops < 1:
+        raise ValueError(f"multi_hop_mix: hops={hops} < 1")
+    if not _node_leaves("multi_hop_mix", xs):
+        return [ref.multi_hop_mix_ref(
+            ref.ring_panel(x, hops), hops=hops, out_rows=x.shape[0],
+            halo=hops, w_self=w_self, w_side=w_side).reshape(x.shape)
+            for x in xs]
+    return _mh.launch([x.contiguous() for x in xs], hops, w_self, w_side)
 
 
 def multi_hop_mix(x: Tensor, *, hops: int, w_self: float,
                   w_side: float) -> Tensor:
-    """``hops`` ring hops of a node-stacked leaf in one launch; bitwise
-    ``hops`` repeated :func:`ring_mix` calls.  The plain version is the
-    JAX package's halo-panel oracle on the wrapped panel."""
-    n, f = _nodes("multi_hop_mix", x)
-    if hops < 1:
-        raise ValueError(f"multi_hop_mix: hops={hops} < 1")
-    if not _on_card("multi_hop_mix", x):
-        out = ref.multi_hop_mix_ref(ref.ring_panel(x, hops), hops=hops,
-                                    out_rows=n, halo=hops, w_self=w_self,
-                                    w_side=w_side)
-        return out.reshape(x.shape)
-    return _mh.launch(x.reshape(n, f).contiguous(), hops, w_self,
-                      w_side).reshape(x.shape)
+    """:func:`multi_hop_mix_leaves` of one leaf."""
+    return multi_hop_mix_leaves([x], hops=hops, w_self=w_self,
+                                w_side=w_side)[0]
 
 
 # ---------------------------------------------------------------------------

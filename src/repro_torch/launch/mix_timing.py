@@ -1,0 +1,153 @@
+"""Time one DRGDA step's ring mixes through the stacked backend, the mix
+of a (20, 1M) leaf with 1, 3 and 67 hops, and the k = 1 and Theorem-1
+k = 67 steps themselves, on one card; prints the card and one JSON line.
+
+    python -m repro_torch.launch.mix_timing
+
+The paper's 20-node ring at 28x28 images: a k = 1 step mixes x, y, u and v
+with one hop, a k = 67 step mixes x, y and u with 67 hops and v with one.
+Each mix case has two times: ``*_ms``, the CUDA-event median of its
+``StackedBackend.mix`` calls (the host's launch work included, as the
+step sees it), and ``*_device_us``, the device time of its kernels under
+``torch.profiler`` (``self_device_time_total`` of the CUDA events, per
+call).  The steps: host-clock medians of synchronized steps, the two
+configurations taken in turns, and the profiler's device time and kernel
+count per step.  Every host-clock and CUDA-event time is taken before the
+first profiler session.  The script calls only what every version of the
+port has (``StackedBackend.mix``, ``launch.fair.prepare``), so the same
+file also times an older checkout of the port:
+
+    PYTHONPATH=<checkout>/src python src/repro_torch/launch/mix_timing.py
+
+Compare two versions only within one call on one card, in turns (old, new,
+new, old).
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+N_NODES, K_THEOREM1 = 20, 67
+# node-stacked leaves of x (and u): conv1, conv2, fc1, head
+X_LEAVES = [(N_NODES, 8, 1, 3, 3), (N_NODES, 16, 8, 3, 3),
+            (N_NODES, 784, 64), (N_NODES, 64, 3)]
+Y_LEAF = (N_NODES, 3)
+
+
+def event_ms(fn, reps: int = 30, warmup: int = 5) -> float:
+    """Median milliseconds of ``fn`` from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def step_walls(runs: dict, rounds: int = 4, per_round: int = 5) -> dict:
+    """Median microseconds of a synchronized step of each run, the runs
+    taken in turns."""
+    states = {k: run.state for k, run in runs.items()}
+    for k, run in runs.items():
+        for _ in range(3):
+            states[k], _ = run.opt.step(states[k], run.full)
+    walls = {k: [] for k in runs}
+    for _ in range(rounds):
+        for k, run in runs.items():
+            for _ in range(per_round):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[k], _ = run.opt.step(states[k], run.full)
+                torch.cuda.synchronize()
+                walls[k].append((time.perf_counter() - t0) * 1e6)
+    return {k: statistics.median(w) for k, w in walls.items()}
+
+
+def device_us(fn, calls: int = 20) -> tuple[float, float]:
+    """(device microseconds, kernels) per call of ``fn`` under the
+    profiler: the CUDA events' self time, summed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / calls,
+            sum(e.count for e in events) / calls)
+
+
+def main() -> int:
+    import repro_torch
+    from repro_torch.comms.backend import StackedBackend
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.launch.fair import prepare
+
+    if not torch.cuda.is_available():
+        raise SystemExit("mix_timing: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def tree():
+        return {f"l{j}": torch.randn(s, generator=gen, device=dev)
+                for j, s in enumerate(X_LEAVES)}
+
+    x, u = tree(), tree()
+    y, v = (torch.randn(Y_LEAF, generator=gen, device=dev) for _ in range(2))
+    big = torch.randn((N_NODES, 1 << 20), generator=gen, device=dev)
+    spec, backend = GossipSpec(n_nodes=N_NODES), StackedBackend()
+    cases = {
+        "mix_k1": lambda: [backend.mix(spec, t, 1) for t in (x, y, u, v)],
+        "mix_k67": lambda: ([backend.mix(spec, t, K_THEOREM1)
+                             for t in (x, y, u)]
+                            + [backend.mix(spec, v, 1)]),
+        "big_k1": lambda: backend.mix(spec, big, 1),
+        "big_k3": lambda: backend.mix(spec, big, 3),
+        "big_k67": lambda: backend.mix(spec, big, K_THEOREM1),
+    }
+    out = {"port": str(repro_torch.__file__)}
+    for name, fn in cases.items():
+        out[f"{name}_ms"] = event_ms(fn)
+    runs = {k: prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
+                       k_steps=k, device=dev) for k in (1, K_THEOREM1)}
+    walls = step_walls(runs)
+    for name, fn in cases.items():
+        out[f"{name}_device_us"] = device_us(fn)[0]
+    for k, run in runs.items():
+        state = run.state
+
+        def step():
+            nonlocal state
+            state, _ = run.opt.step(state, run.full)
+
+        out[f"step_k{k}_us"] = walls[k]
+        out[f"step_k{k}_device_us"], out[f"step_k{k}_kernels"] = \
+            device_us(step, calls=5)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

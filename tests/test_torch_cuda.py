@@ -6,7 +6,8 @@ machine that has only PyTorch:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Gates as in ``chip_smoke.py``: the ring mixes (fp32 and int8) bitwise,
+Gates as in ``chip_smoke.py``: the ring mixes (fp32 and int8, one leaf
+or a grouped tree) bitwise,
 stiefel_project 1e-5 relative, fused_retract 5e-5 absolute, the attention
 kernels 2e-5 absolute in fp32 and 2e-2 in bf16 (the JAX package's gates),
 with exact zeros for query rows without keys and for empty decode slots.
@@ -47,6 +48,58 @@ def test_cuda_ring_kernels_bitwise(cuda):
                 ops.multi_hop_mix(x, hops=hops, w_self=WC, w_side=WS), z)
     counts = ops.launch_counts()
     assert counts["ring_mix"] == 4 and counts["multi_hop_mix"] == 12
+
+
+def _hops_plain(x, hops):
+    z = x
+    for _ in range(hops):
+        z = ref.ring_mix_ref(z, z.roll(1, 0), z.roll(-1, 0), WC, WS)
+    return z
+
+
+# the ragged tree of the CPU tests (y / v, conv1, conv2, an odd width)
+RAGGED = [(3,), (72,), (1152,), (1001,), (16, 8, 3, 3)]
+
+
+@pytest.mark.parametrize("n", [3, 20, 32, 33, 40, 64])
+def test_cuda_grouped_ring_mixes_bitwise(cuda, n):
+    """One grouped launch over a ragged tree == the plain hops, bit for
+    bit: the register kernel (n <= 32) and the shared-memory one (n = 33,
+    40; 64 needs more than 48 KB of shared memory a block), with a leaf that
+    is not 16-byte aligned (a view at offset 1: the scalar path)."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    xs = [torch.randn((n, *s), generator=gen, device=cuda) for s in RAGGED]
+    xs.append(torch.randn(n * 1152 + 1, generator=gen,
+                          device=cuda)[1:].view(n, 1152))
+    assert xs[-1].data_ptr() % 16 != 0
+    ops.reset_launch_counts()
+    for x, o in zip(xs, ops.ring_mix_leaves(xs, w_self=WC, w_side=WS)):
+        assert o.shape == x.shape and torch.equal(o, _hops_plain(x, 1))
+    for hops in (1, 3, 67):
+        got = ops.multi_hop_mix_leaves(xs, hops=hops, w_self=WC, w_side=WS)
+        for x, g in zip(xs, got):
+            assert g.shape == x.shape and torch.equal(g, _hops_plain(x, hops))
+    counts = ops.launch_counts()
+    assert counts["ring_mix"] == 1 and counts["multi_hop_mix"] == 3
+
+
+@pytest.mark.parametrize("count,launches", [(1, 1), (16, 1), (17, 2)])
+def test_cuda_grouped_launches_per_16_leaves(cuda, count, launches):
+    gen = torch.Generator(device=cuda).manual_seed(count)
+    xs = [torch.randn((20, 5 + j), generator=gen, device=cuda)
+          for j in range(count)]
+    ops.reset_launch_counts()
+    one = ops.ring_mix_leaves(xs, w_self=WC, w_side=WS)
+    three = ops.multi_hop_mix_leaves(xs, hops=3, w_self=WC, w_side=WS)
+    counts = ops.launch_counts()
+    assert counts["ring_mix"] == launches
+    assert counts["multi_hop_mix"] == launches
+    for x, o, t in zip(xs, one, three):
+        assert torch.equal(o, _hops_plain(x, 1))
+        assert torch.equal(t, _hops_plain(x, 3))
+        assert o.is_contiguous() and o.data_ptr() % 16 == 0
+    # every output is a view of one buffer
+    assert len({o.untyped_storage().data_ptr() for o in one}) == 1
 
 
 @pytest.mark.parametrize("shape", [(20, 784, 64), (20, 64, 3), (784, 64),

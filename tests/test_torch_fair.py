@@ -46,7 +46,8 @@ from repro_torch.core import gda as tgda  # noqa: E402
 from repro_torch.core.gossip import GossipSpec  # noqa: E402
 from repro_torch.core.metric import convergence_metric  # noqa: E402
 from repro_torch.data.synthetic import ClassificationStream  # noqa: E402
-from repro_torch.launch.fair import run_method  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.fair import COMM_PRESETS, run_method  # noqa: E402
 from repro_torch.objectives import fair  # noqa: E402
 
 N, HW, FC = 4, 8, 16
@@ -290,6 +291,44 @@ def test_run_method_on_the_cpu():
         run_method("gt-gda", 1, True, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
         run_method("drgda", 1, True, retraction="cayley", device="cpu")
+
+
+_INT8_ALL = dataclasses.replace(COMM_PRESETS["int8_ef"], quant_hops="all")
+
+
+# k = 3 takes the branch of every k > 1 (the Theorem-1 k = 67 of the card's
+# run) at a fraction of the CPU time
+@pytest.mark.parametrize("name,det,k,comm,per_step", [
+    # one grouped call per mixed tree: x, y, u with k hops, v with one
+    ("drgda", True, 1, None, {"ring": 4, "multi": 0}),
+    ("drsgda", False, 1, None, {"ring": 4, "multi": 0}),
+    ("drgda", True, 3, None, {"ring": 1, "multi": 3}),
+    # EF-int8: the error-feedback base hop of each of the four hats
+    ("drgda", True, 1, COMM_PRESETS["int8_ef"], {"ring": 4, "multi": 0}),
+    ("drgda", True, 3, _INT8_ALL, {"ring": 4, "multi": 0}),
+    ("drgda", True, 1, COMM_PRESETS["int8_ef_drop5"], {"ring": 0,
+                                                       "multi": 0}),
+])
+def test_main_path_grouped_mix_calls_per_step(monkeypatch, name, det, k,
+                                              comm, per_step):
+    """The grouped ring-mix calls of the main path, with evaluation every
+    step: ``chip_smoke.py`` holds the card's launch counts to these."""
+    calls = {"ring": 0, "multi": 0}
+
+    def spy(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(ops, "ring_mix_leaves",
+                        spy("ring", ops.ring_mix_leaves))
+    monkeypatch.setattr(ops, "multi_hop_mix_leaves",
+                        spy("multi", ops.multi_hop_mix_leaves))
+    steps = 2
+    run_method(name, steps, det, image_hw=8, n_nodes=5, k_steps=k,
+               eval_every=1, device="cpu", comm=comm)
+    assert calls == {key: c * steps for key, c in per_step.items()}
 
 
 def test_run_method_refuses_cuda_without_a_card():

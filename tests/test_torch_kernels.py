@@ -5,7 +5,9 @@ held here against ``repro.kernels.ref`` (run eagerly, one rounded operation
 at a time) and against the Pallas kernels in interpret mode, on the same
 NumPy inputs.  Tolerances:
 
-* ring_mix / multi_hop_mix: bitwise against the eager oracles.  Under
+* ring_mix / multi_hop_mix, one leaf or a grouped tree
+  (``ring_mix_leaves`` / ``multi_hop_mix_leaves``, and the stacked
+  backend's ``mix`` over a tree): bitwise against the eager oracles.  Under
   ``jit`` XLA:CPU contracts ``wc*x + ws*(l+r)`` into one FMA, so the
   Pallas-interpret results differ by the rounding of one product per hop;
   the ring hop is non-expansive in the max norm, so the difference stays
@@ -47,7 +49,9 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import paged_decode as jpd  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.comms import compress  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.comms.backend import StackedBackend as TStacked  # noqa: E402
+from repro_torch.core.gossip import GossipSpec as TGossip  # noqa: E402
+from repro_torch.kernels import leaves, ops, ref  # noqa: E402
 
 WC, WS = 1.0 / 3.0, 1.0 / 3.0
 EPS32 = float(np.finfo(np.float32).eps)
@@ -127,6 +131,91 @@ def test_halo_panel_oracle_bitwise(b, halo, hops):
     want = np.asarray(jref.multi_hop_mix_ref(jnp.asarray(panel), **kw))
     np.testing.assert_array_equal(_np(ref.multi_hop_mix_ref(_t(panel), **kw)),
                                   want)
+
+
+# a ragged tree of the main path's kinds: y / v, conv1, conv2 (as its flat
+# leaf and with its conv dims), an odd width
+RAGGED = [(3,), (72,), (1152,), (1001,), (16, 8, 3, 3)]
+
+
+@pytest.mark.parametrize("n", [3, 20])
+@pytest.mark.parametrize("hops", [1, 3, 67])
+def test_grouped_ring_mixes_bitwise_vs_oracle(n, hops):
+    """``ring_mix_leaves`` / ``multi_hop_mix_leaves`` on a ragged tree ==
+    the one-leaf wrappers == the JAX package's eager oracles (the one-hop
+    combine, and the halo-panel oracle on the wrapped panel), bit for bit."""
+    rng = np.random.default_rng(100 * n + hops)
+    xs = [rng.normal(size=(n, *s)).astype(np.float32) for s in RAGGED]
+    got = ops.multi_hop_mix_leaves([_t(x) for x in xs], hops=hops,
+                                   w_self=WC, w_side=WS)
+    assert [g.shape for g in got] == [x.shape for x in xs]
+    for x, g in zip(xs, got):
+        np.testing.assert_array_equal(_np(g), _np(ops.multi_hop_mix(
+            _t(x), hops=hops, w_self=WC, w_side=WS)))
+    # the oracle is column by column, so one call on the leaves' columns
+    # side by side holds every leaf (one eager run, not one per leaf)
+    flat = np.concatenate([x.reshape(n, -1) for x in xs], axis=1)
+    panel = flat[(np.arange(n + 2 * hops) - hops) % n]
+    want = np.asarray(jref.multi_hop_mix_ref(
+        jnp.asarray(panel), hops=hops, out_rows=n, halo=hops, w_self=WC,
+        w_side=WS))
+    np.testing.assert_array_equal(
+        np.concatenate([_np(g).reshape(n, -1) for g in got], axis=1), want)
+    if hops == 1:
+        one = ops.ring_mix_leaves([_t(x) for x in xs], w_self=WC, w_side=WS)
+        for x, g, o in zip(xs, got, one):
+            want = np.asarray(jref.ring_mix_ref(
+                jnp.asarray(x), jnp.asarray(np.roll(x, 1, 0)),
+                jnp.asarray(np.roll(x, -1, 0)), WC, WS))
+            np.testing.assert_array_equal(_np(o), want)
+            np.testing.assert_array_equal(
+                _np(ops.ring_mix(_t(x), w_self=WC, w_side=WS)), want)
+            np.testing.assert_array_equal(_np(g), want)
+
+
+@pytest.mark.parametrize("n", [2, 3, 20])
+@pytest.mark.parametrize("steps", [1, 3, 67])
+def test_stacked_backend_mix_bitwise_vs_jax(n, steps):
+    """The port's ``StackedBackend.mix`` over a nested tree (one grouped
+    call for its leaves; ``mix_ring`` for the two-node ring) == the JAX
+    package's ``StackedBackend.mix`` run eagerly, bit for bit."""
+    rng = np.random.default_rng(10 * n + steps)
+    tree = {"w": [rng.normal(size=(n, 8, 1, 3, 3)).astype(np.float32),
+                  rng.normal(size=(n, 1001)).astype(np.float32)],
+            "y": rng.normal(size=(n, 3)).astype(np.float32)}
+    got = TStacked().mix(TGossip(n_nodes=n), {
+        "w": [_t(a) for a in tree["w"]], "y": _t(tree["y"])}, steps)
+    with jax.disable_jit():
+        want = JStacked().mix(JGossip(n_nodes=n), {
+            "w": [jnp.asarray(a) for a in tree["w"]],
+            "y": jnp.asarray(tree["y"])}, steps)
+    for g, w in zip(got["w"] + [got["y"]], want["w"] + [want["y"]]):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
+def test_grouped_outputs_share_one_aligned_buffer():
+    """The grouped launches' outputs: one allocation, each leaf a
+    contiguous view of its own shape at a 16-byte-aligned offset (the
+    kernels' float4 paths)."""
+    xs = [torch.zeros(s) for s in [(3, 3), (3, 5, 2), (3, 1), (3, 8)]]
+    outs = leaves.outputs(xs)
+    assert [o.shape for o in outs] == [x.shape for x in xs]
+    assert all(o.is_contiguous() for o in outs)
+    assert [o.storage_offset() for o in outs] == [0, 12, 44, 48]
+    assert len({o.untyped_storage().data_ptr() for o in outs}) == 1
+
+
+@pytest.mark.parametrize("op", [
+    lambda xs: ops.ring_mix_leaves(xs, w_self=WC, w_side=WS),
+    lambda xs: ops.multi_hop_mix_leaves(xs, hops=3, w_self=WC, w_side=WS)])
+@pytest.mark.parametrize("xs,match", [
+    ([], "non-empty list"),
+    ([torch.zeros(4, 3), torch.zeros(5, 3)], "leaves of 4 and 5 nodes"),
+    ([torch.zeros(4, 3), torch.zeros(4, 3, device="meta")],
+     "different devices")])
+def test_grouped_operand_checks(op, xs, match):
+    with pytest.raises(ValueError, match=match):
+        op(xs)
 
 
 # ---------------------------------------------------------------------------
