@@ -11,7 +11,11 @@
    at the shapes one main-path step gives it and at stress shapes, with its
    gate: bitwise for the ring mixes (fp32 and int8), <= 5e-5 absolute for
    fused_retract, <= 1e-5 relative for stiefel_project.  Times from CUDA
-   events (median after warm-up) beside the least time the card could take,
+   events: ``ms`` the median of single calls after warm-up (the host's
+   launch work included), ``device_ms`` 50 back-to-back calls between two
+   events over 50 (the device's pace where it is the slower), both for the
+   kernel and for its library call, beside the least time the card could
+   take,
    and for the fp32 ring mixes beside one ``torch.matmul`` by W^k (the
    library call that computes the same function, up to rounding; no single
    PyTorch call computes the int8 ones).  The fp32 ring mixes run as the
@@ -22,8 +26,11 @@
    attention kernels in fp32 and bf16
    (gates 2e-5 and 2e-2 absolute, the JAX package's): flash_attention at
    smollm-135m's prefill (S=256) and contiguous-decode (S=1, T=288)
-   shapes, at S=T=4096 causal and with window 48, and non-causal, beside
-   one ``scaled_dot_product_attention`` call with the same mask;
+   shapes, at S=T=4096 causal and with window 48, and non-causal (its
+   tensor-core route), and at hd=40, hdv=24 (its SIMT route; both routes
+   must run), beside one ``scaled_dot_product_attention`` call with the
+   same mask, its fp32 tensor-core rows bounded at the 3xTF32 rate
+   (495 / 3 TFLOP/s);
    paged_decode at the engine's decode shape (4 slots, ragged seq_lens up
    to 288, one empty) and at 64 slots of 2048 tokens (no PyTorch call
    gathers through a block table).  Query rows without keys and empty
@@ -54,8 +61,9 @@
    contiguous-cache path fed the engine's tokens gives the same per-step
    logits (1e-3 absolute) and argmax where the top-2 margin exceeds 1e-3.
    Prints tokens/s, TTFT, the decode-wave time, launches per wave and the
-   device busy share of a wave (host wall, CUDA events, profiler device
-   time), then the SMOKE config's engine on the card against the CPU.
+   device busy share of a wave and of one prefill of 256 tokens (host wall,
+   CUDA events, profiler device time, the kernels that take the most),
+   then the SMOKE config's engine on the card against the CPU.
    This phase runs last, after the main path's profile and agreement.
 6. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -82,6 +90,10 @@ SRC = ROOT / "src"
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS_BF16 = 989e12     # dense bf16 on the tensor cores
+# fp32-accurate products on the tensor cores: 3xTF32, three TF32 products
+# (495 TFLOP/s dense) per fp32 product
+PEAK_FLOPS_TF32X3 = 495e12 / 3
+DEVICE_CALLS = 50            # back-to-back calls per device_ms reading
 
 KERNEL_META = {
     "stiefel_project": ("src/repro_torch/kernels/csrc/stiefel_project.cu",
@@ -146,6 +158,24 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = DEVICE_CALLS, warmup: int = 3) -> float:
+    """Milliseconds per call of ``fn`` over ``calls`` back-to-back calls
+    between two CUDA events, after warm-up: the device's pace where it is
+    slower than the host's launches, the host's where it is not."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def bound(flops: float, nbytes: float,
@@ -227,8 +257,9 @@ def run_case(name, calls, plain_calls, gate, costs, label,
     scale = max(float(b.float().abs().max()) for b in want)
     ok, gate_txt = gate(outs, want, err, scale)
     ms = time_ms(lambda: [c() for c in calls])
+    dev_ms = device_ms(lambda: [c() for c in calls])
     plain_ms = time_ms(lambda: [p() for p in plain_calls])
-    library_ms, lib_txt = None, ""
+    library_ms, library_dev_ms, lib_txt = None, None, ""
     if library_calls is not None:
         lib_err = max(float((a.float() - b.float()).abs().max()) for a, b
                       in zip(_flat([lc() for lc in library_calls]), want))
@@ -239,18 +270,22 @@ def run_case(name, calls, plain_calls, gate, costs, label,
             raise AssertionError(f"{name} {label}: the library call "
                                  f"differs by {lib_err:.3e}")
         library_ms = time_ms(lambda: [lc() for lc in library_calls])
-        lib_txt = f" library={library_ms:.4f} ms (err {lib_err:.1e})"
+        library_dev_ms = device_ms(lambda: [lc() for lc in library_calls])
+        lib_txt = (f" library={library_ms:.4f} ms device={library_dev_ms:.4f}"
+                   f" ms (err {lib_err:.1e})")
     flops = sum(c[0] for c in costs)
     nbytes = sum(c[1] for c in costs)
     b_ms, b_by = bound(flops, nbytes, peak)
     log(f"  {name:16s} {label:34s} max_abs_err={err:.3e} "
-        f"({gate_txt}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
+        f"({gate_txt}) kernel={ms:.4f} ms device={dev_ms:.4f} ms "
+        f"plain={plain_ms:.4f} ms"
         f"{lib_txt} bound={b_ms:.5f} ms ({b_by})")
     if not ok:
         raise AssertionError(f"{name} {label}: outside its gate "
                              f"({gate_txt}), max_abs_err={err:.3e}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms}
 
 
 def bitwise(outs, want, err, scale):
@@ -753,23 +788,37 @@ def attention_kernel_phase(device="cuda") -> dict:
     fp32 and bf16; returns the table rows (fp32, the serving path's
     shapes: one prefill of 256 tokens, one decode wave of 4 slots)."""
     import torch
+    from repro_torch.kernels import flash_attention as _fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=device).manual_seed(1)
     rows = {}
+    routes = set()
     for dtype_name, gate in ATTN_GATES.items():
         dtype = getattr(torch, dtype_name)
         peak = PEAK_FLOPS_BF16 if dtype == torch.bfloat16 else PEAK_FLOPS
-        for label, s, t, causal, window in (
-                ("prefill S=T=256", 256, 256, True, None),
-                ("contiguous decode S=1 T=288", 1, 288, True, None),
-                ("stress S=T=4096", 4096, 4096, True, None),
-                ("stress S=T=4096 window 48", 4096, 4096, True, 48),
-                ("non-causal S=T=256", 256, 256, False, None)):
-            q = torch.randn((1, s, N_HEADS, HEAD_DIM), generator=gen,
+        for label, s, t, causal, window, hd, hdv in (
+                ("prefill S=T=256", 256, 256, True, None, HEAD_DIM, HEAD_DIM),
+                ("contiguous decode S=1 T=288", 1, 288, True, None, HEAD_DIM,
+                 HEAD_DIM),
+                ("stress S=T=4096", 4096, 4096, True, None, HEAD_DIM,
+                 HEAD_DIM),
+                ("stress S=T=4096 window 48", 4096, 4096, True, 48, HEAD_DIM,
+                 HEAD_DIM),
+                ("non-causal S=T=256", 256, 256, False, None, HEAD_DIM,
+                 HEAD_DIM),
+                ("hd=40 hdv=24 S=T=256", 256, 256, True, None, 40, 24)):
+            q = torch.randn((1, s, N_HEADS, hd), generator=gen,
                             device=device).to(dtype)
-            k, v = (torch.randn((1, t, N_KV_HEADS, HEAD_DIM), generator=gen,
-                                device=device).to(dtype) for _ in range(2))
+            k = torch.randn((1, t, N_KV_HEADS, hd), generator=gen,
+                            device=device).to(dtype)
+            v = torch.randn((1, t, N_KV_HEADS, hdv), generator=gen,
+                            device=device).to(dtype)
+            route = _fa.route(q, k, v)
+            routes.add(route)
+            # fp32 on the tensor cores is 3xTF32: its bound uses that rate
+            case_peak = (PEAK_FLOPS_TF32X3 if dtype == torch.float32
+                         and route == "tensor_core" else peak)
             qpos = torch.arange(t - s, t, dtype=torch.int32,
                                 device=device)[None]
             kvpos = torch.arange(t, dtype=torch.int32, device=device)[None]
@@ -780,10 +829,11 @@ def attention_kernel_phase(device="cuda") -> dict:
                 "flash_attention", [lambda: ops.flash_attention(q, k, v, **kw)],
                 [lambda: ref.blockwise_attention(q, k, v, **kw)],
                 absolute(gate), [_flash_cost(q, k, v, mask)],
-                f"{dtype_name} {label}",
+                f"{dtype_name} {label} [{route}]",
                 [_sdpa(q, k, v, mask, causal and window is None and s == t)],
-                peak=peak, lib_gate=1e-4 if dtype == torch.float32 else 1e-2)
-            if dtype == torch.float32 and s == 256 and causal:
+                peak=case_peak,
+                lib_gate=1e-4 if dtype == torch.float32 else 1e-2)
+            if dtype == torch.float32 and label == "prefill S=T=256":
                 rows["flash_attention"] = row
         # query rows without a usable key: exact zeros
         q = torch.randn((1, 256, N_HEADS, HEAD_DIM), generator=gen,
@@ -826,6 +876,9 @@ def attention_kernel_phase(device="cuda") -> dict:
                 rows["paged_decode"] = row
         log(f"  paged_decode     {dtype_name}: empty slots exact zeros")
 
+    if routes != {"tensor_core", "simt"}:
+        raise AssertionError(f"flash_attention ran the routes {routes}, "
+                             f"not both")
     q = torch.zeros((1, 8, 4, 16), device=device, dtype=torch.float64)
     bt = torch.zeros((1, 1), dtype=torch.int64, device=device)
     for call in (lambda: ops.flash_attention(q, q, q),
@@ -1001,16 +1054,54 @@ def serve_phase() -> dict:
         f"max_abs_err={max_err:.3e} (<= 1e-3); argmax equal at every one "
         f"of the {clear} steps (of {n_tok}) with a top-2 margin > 1e-3")
     _profile_wave(cfg, params, spec, prompts[:SERVE_SLOTS])
+    _profile_prefill(cfg, params, spec, rng.integers(
+        0, cfg.vocab_size, PROMPT_LENGTHS[1]).tolist())
     return got
 
 
-def _profile_wave(cfg, params, spec, prompts, n: int = 10) -> None:
-    """A full decode wave (every slot live): host wall (the wave ends in
-    its tokens' copy to the host), CUDA-event span and profiler device
-    time, side by side."""
+def _profile_calls(label: str, fn, n: int) -> None:
+    """``n`` calls of ``fn`` (each ends in a host sync): host wall, CUDA-event
+    span and profiler device time per call, side by side, and the kernels
+    that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    walls, spans = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [(e.self_device_time_total / n, e.count / n, e.key)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    events.sort(reverse=True)
+    device = sum(e[0] for e in events) / 1e3
+    wall = statistics.median(walls)
+    span = statistics.median(spans)
+    log(f"  {label}: {wall:.3f} ms wall (median of {n}; min {min(walls):.3f},"
+        f" max {max(walls):.3f}), {span:.3f} ms CUDA-event span, "
+        f"{device:.3f} ms device time in {sum(e[1] for e in events):.0f} "
+        f"device events (busy {100 * device / wall:.1f}% of the wall, "
+        f"{100 * device / span:.1f}% of the span)")
+    for us, count, key in events[:8]:
+        log(f"    {us:9.1f} us/call  x{count:4.0f}  {key[:90]}")
+
+
+def _profile_wave(cfg, params, spec, prompts, n: int = 10) -> None:
+    """A full decode wave (every slot live), profiled as _profile_calls
+    does; the wave ends in its tokens' copy to the host."""
     from repro_torch.serve import (ContinuousBatchingScheduler, Request,
                                    ServeEngine)
 
@@ -1024,37 +1115,26 @@ def _profile_wave(cfg, params, spec, prompts, n: int = 10) -> None:
         engine.admit(slot, req.prompt, sched.slots[slot].pages)
     for _ in range(3):
         engine.step()
-    walls, spans = [], []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        engine.step()
-        end.record()
-        walls.append(1e3 * (time.perf_counter() - t0))
-        end.synchronize()
-        spans.append(start.elapsed_time(end))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            engine.step()
-        torch.cuda.synchronize()
-    events = [(e.self_device_time_total / n, e.count / n, e.key)
-              for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    events.sort(reverse=True)
-    device_ms = sum(e[0] for e in events) / 1e3
-    wall = statistics.median(walls)
-    span = statistics.median(spans)
-    log(f"  decode wave, {SERVE_SLOTS} live slots: {wall:.3f} ms wall "
-        f"(median of {n}; min {min(walls):.3f}, max {max(walls):.3f}), "
-        f"{span:.3f} ms CUDA-event span, {device_ms:.3f} ms device time in "
-        f"{sum(e[1] for e in events):.0f} device events per wave (busy "
-        f"{100 * device_ms / wall:.1f}% of the wall, "
-        f"{100 * device_ms / span:.1f}% of the span)")
-    for us, count, key in events[:8]:
-        log(f"    {us:9.1f} us/wave  x{count:4.0f}  {key[:90]}")
+    _profile_calls(f"decode wave, {SERVE_SLOTS} live slots", engine.step, n)
+
+
+def _profile_prefill(cfg, params, spec, prompt, n: int = 5) -> None:
+    """One prefill of ``prompt`` into slot 0 (admit, then release, so the
+    next one finds the slot free), profiled as _profile_calls does; the
+    prefill ends in its first token's copy to the host."""
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(cfg, params, kv_spec=spec, n_slots=SERVE_SLOTS,
+                         temperature=0.0)
+    pages = list(range(1, 1 + spec.max_pages_per_slot))
+
+    def prefill():
+        engine.admit(0, prompt, pages)
+        engine.release(0)
+
+    for _ in range(2):
+        prefill()
+    _profile_calls(f"prefill of {len(prompt)} tokens", prefill, n)
 
 
 def serve_agreement_phase() -> None:
@@ -1152,7 +1232,9 @@ def main() -> int:
                       "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],
                       "bound_by": row["bound_by"],
-                      "library_ms": row["library_ms"]})
+                      "library_ms": row["library_ms"],
+                      "device_ms": row["device_ms"],
+                      "library_device_ms": row["library_device_ms"]})
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,24 @@ def _entry():
     return fn
 
 
+@functools.cache
+def _route_entry():
+    fn = build.library("flash_attention").repro_flash_attention_route
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, i, i]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel's route for these CUDA operands, chosen by shape (and
+    16-byte alignment) in the C entry point: ``"tensor_core"`` for head
+    dims that are multiples of 16 up to 128, else ``"simt"``."""
+    tc = _route_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        q.shape[-1], v.shape[-1])
+    return "tensor_core" if tc else "simt"
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
            causal: bool, window: int, scale: float) -> torch.Tensor:

@@ -194,8 +194,16 @@ ATTN_GATE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 128, 128, 4, 1, 32, 32, True, 48),       # window + MQA
     (1, 64, 80, 4, 4, 32, 32, False, None),      # non-causal
     (1, 40, 40, 2, 1, 256, 256, True, None),     # the largest head dims
+    (1, 200, 232, 4, 2, 128, 128, True, None),   # hd 128, keys split in 2
+    (2, 33, 97, 4, 4, 128, 64, False, None),     # hd 128, hdv 64
+    (1, 1024, 1024, 2, 1, 64, 64, True, None),   # causal S=T=1024
+    (1, 70, 90, 4, 2, 40, 24, True, None),       # not multiples of 16
 ])
 def test_cuda_flash_attention_vs_plain(cuda, case, dtype):
+    """Both routes of the kernel, chosen by shape: the tensor cores for
+    head dims that are multiples of 16 up to 128, the SIMT kernel
+    otherwise."""
+    from repro_torch.kernels import flash_attention as _fa
     b, s, t, h, hkv, hd, hdv, causal, window = case
     gen = torch.Generator(device=cuda).manual_seed(s + t)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
@@ -203,6 +211,8 @@ def test_cuda_flash_attention_vs_plain(cuda, case, dtype):
     v = torch.randn((b, t, hkv, hdv), generator=gen, device=cuda).to(dtype)
     qpos = torch.arange(t - s, t, dtype=torch.int32,
                         device=cuda).expand(b, s)
+    tc = hd % 16 == 0 and hdv % 16 == 0 and max(hd, hdv) <= 128
+    assert _fa.route(q, k, v) == ("tensor_core" if tc else "simt")
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               q_positions=qpos)
@@ -260,6 +270,52 @@ def test_cuda_paged_decode_vs_plain(cuda, dtype, g, window):
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.all(got[2] == 0)                   # the empty slot
     assert float((got.float() - want.float()).abs().max()) <= ATTN_GATE[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 100, 37])
+def test_cuda_paged_decode_split_edges(cuda, dtype, window):
+    """The split over each slot's keys (64-token chunks of 16-token pages):
+    seq_lens on a chunk edge, one token, a full table row, an empty slot,
+    one key either side of an edge; windows that start inside a chunk."""
+    seq = [64, 128, 1, 288, 0, 65, 63, 200]
+    q, kp, vp, bt, sl = _paged_inputs(cuda, dtype, seq, 3, m=18, seed=4)
+    ops.reset_launch_counts()
+    got = ops.paged_decode_attention(q, kp, vp, bt, sl, window=window)
+    assert ops.launch_counts()["paged_decode"] == 1
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, sl, window=window)
+    assert torch.all(got[4] == 0)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_GATE[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_64_slots_of_2048(cuda, dtype):
+    """The stress shape of chip_smoke.py at reduced width (one kv head of
+    two query heads, hd 32): 32 chunks per slot, 64 slots."""
+    q, kp, vp, bt, sl = _paged_inputs(cuda, dtype, [2048] * 64, 2, m=128,
+                                      hkv=1, hd=32, seed=5)
+    got = ops.paged_decode_attention(q, kp, vp, bt, sl)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, sl)
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_GATE[dtype]
+
+
+def test_cuda_paged_decode_is_deterministic_and_resets_its_tickets(cuda):
+    """The combine merges the partials in chunk order: two calls give the
+    same bits.  Its last blocks reset the tickets to 0, so a call after a
+    call on the same buffer is right."""
+    from repro_torch.kernels import paged_decode as _pd
+    q, kp, vp, bt, sl = _paged_inputs(cuda, torch.float32,
+                                      [288, 37, 0, 161, 1, 16], 3, m=18)
+    first = ops.paged_decode_attention(q, kp, vp, bt, sl)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream().cuda_stream
+    tickets = _pd._TICKETS[(cuda.index or 0, stream)]
+    assert int(tickets.abs().sum()) == 0
+    second = ops.paged_decode_attention(q, kp, vp, bt, sl)
+    assert torch.equal(first, second)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, sl)
+    assert float((second - want).abs().max()) <= ATTN_GATE[torch.float32]
+    assert int(tickets.abs().sum()) == 0
 
 
 def test_cuda_attention_wrappers_refuse_other_dtypes(cuda):

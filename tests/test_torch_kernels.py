@@ -554,3 +554,25 @@ def test_attention_operand_checks():
     q, kp, vp, bt, seq = map(torch.from_numpy, _paged_case())
     with pytest.raises(ValueError, match="block_table"):
         ops.paged_decode_attention(q, kp, vp, bt[:2], seq)
+
+
+@pytest.mark.parametrize("m_pages,page_size", [
+    (18, 16), (128, 16), (1, 16), (12, 4), (5, 24), (3, 100), (7, 64),
+    (9, 1)])
+def test_paged_decode_split_plan_covers_every_key_once(m_pages, page_size):
+    """The CUDA kernel's split of each (slot, kv head)'s keys: chunk c holds
+    positions [c * chunk, (c + 1) * chunk).  Every position of a table row
+    lies in exactly one chunk, no chunk starts past the row (so none
+    reaches into another slot's), chunks are whole pages where a page fits
+    in one, and no chunk exceeds the kernel's 64 keys."""
+    from repro_torch.kernels import paged_decode as _pd
+    chunk, n_chunks = _pd.split_plan(m_pages, page_size)
+    keys = m_pages * page_size
+    assert 1 <= chunk <= _pd.CHUNK_KEYS
+    if page_size <= _pd.CHUNK_KEYS:
+        assert chunk % page_size == 0
+    covered = np.zeros(keys, np.int64)
+    for c in range(n_chunks):
+        assert c * chunk < keys
+        covered[c * chunk:min((c + 1) * chunk, keys)] += 1
+    assert np.all(covered == 1)
