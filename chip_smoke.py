@@ -22,6 +22,9 @@
    main path calls them, one grouped call per mixed tree, and
    multi_hop_mix also on a 40-node ring (its shared-memory kernel); the
    registers and occupancy of its register kernel at n = 20 are printed.
+   fused_retract also at r = 99 and r = 256 (its clusters of 8 CTAs),
+   and multi_hop_mix_quant as the EF-int8 k = 67 step calls it: one grouped
+   call for each of the x, u and y trees.
    A CUDA operand of another dtype must raise, not fall back.  The
    attention kernels in fp32 and bf16
    (gates 2e-5 and 2e-2 absolute, the JAX package's): flash_attention at
@@ -30,7 +33,8 @@
    tensor-core route), and at hd=40, hdv=24 (its SIMT route; both routes
    must run), beside one ``scaled_dot_product_attention`` call with the
    same mask, its fp32 tensor-core rows bounded at the 3xTF32 rate
-   (495 / 3 TFLOP/s);
+   (495 / 3 TFLOP/s); in bf16 also with every output in [4, 8), against
+   the reference's unrounded fp32 result;
    paged_decode at the engine's decode shape (4 slots, ragged seq_lens up
    to 288, one empty) and at 64 slots of 2048 tokens (no PyTorch call
    gathers through a block table).  Query rows without keys and empty
@@ -46,9 +50,10 @@
      for 5 steps, and the 5%-drop channel at k = 1 for 10 steps;
    losses finite, Stiefel residual <= 1e-4, every kernel of the path
    launched, and the ring mixes and the int8 kernels exactly as often as
-   the steps need (one grouped ring call per mixed tree).  Then a profile
-   of a DRGDA k = 1 step, an EF-int8 k = 1 step and a DRGDA k = 67 step
-   (wall time, device time and busy share, the kernels that take the
+   the steps need (one grouped ring call per mixed tree, one grouped int8
+   tail call per tree).  Then a profile of a DRGDA k = 1 step, an EF-int8
+   k = 1 step, a DRGDA k = 67 step and an EF-int8 quant_hops="all" k = 67
+   step (wall time, device time and busy share, the kernels that take the
    most), and small DRGDA runs on the card against the same runs on the
    CPU (plain versions), full precision and EF-int8.
 5. Serving path: smollm-135m at its published widths (30 layers, fp32,
@@ -327,7 +332,8 @@ def kernel_phase(device="cuda") -> dict:
             [lambda a=a, b=b: plain(a, b) for a, b in pairs], gate,
             [cost(s) for s in STIEFEL_LEAVES],
             "main step (20,784,64)+(20,64,3)")
-        for shape in ((N_NODES, 4096, 256), (N_NODES, 1000, 37)):
+        for shape in ((N_NODES, 4096, 256), (N_NODES, 4096, 99),
+                      (N_NODES, 1000, 37)):
             a, b = _stiefel_inputs(shape, gen, device)
             run_case(name, [lambda: op(a, b)], [lambda: plain(a, b)], gate,
                      [cost(shape)], f"stress {shape}")
@@ -453,18 +459,21 @@ def kernel_phase(device="cuda") -> dict:
              [lambda: quant_plain(qbig, sbig)], bitwise,
              [_quant_cost(big.shape, 1)], "stress (20, 1M)")
 
-    # multi_hop_mix_quant: the k = 67 step's tail of x, y and u (66 hops)
+    # multi_hop_mix_quant: the k = 67 step's tail of x, u and y (66 hops),
+    # one grouped call per tree, as the comms engine makes them
     tail = K_THEOREM1 - 1
-    leaves = X_LEAVES * 2 + [Y_LEAF]
-    qs = [payload(torch.randn(s, generator=gen, device=device))
-          for s in leaves]
+    trees = [X_LEAVES, X_LEAVES, [Y_LEAF]]
+    groups = [[payload(torch.randn(s, generator=gen, device=device))
+               for s in tree] for tree in trees]
     rows["multi_hop_mix_quant"] = run_case(
         "multi_hop_mix_quant",
-        [lambda q=q, s=s: ops.multi_hop_mix_quant(q, s, hops=tail, w_self=wc,
-                                                  w_side=ws) for q, s in qs],
-        [lambda q=q, s=s: quant_hops_plain(q, s, tail) for q, s in qs],
-        bitwise, [_quant_cost(s, tail) for s in leaves],
-        f"main step {tail} hops, 9 leaves")
+        [lambda g=g: ops.multi_hop_mix_quant_leaves(
+            [q for q, _ in g], [s for _, s in g], hops=tail, w_self=wc,
+            w_side=ws) for g in groups],
+        [lambda q=q, s=s: quant_hops_plain(q, s, tail)
+         for g in groups for q, s in g],
+        bitwise, [_quant_cost(s, tail) for tree in trees for s in tree],
+        f"main step {tail} hops, 3 calls, 9 leaves")
     for k in (1, 3, tail):
         run_case("multi_hop_mix_quant",
                  [lambda k=k: ops.multi_hop_mix_quant(qbig, sbig, hops=k,
@@ -570,14 +579,14 @@ def main_path_phase() -> dict:
     int8_all = dataclasses.replace(int8, quant_hops="all")
     # per step: one compressed first hop for each of the 10 leaves of x, y,
     # u and v, and one grouped error-feedback hop of each of the 4 hats;
-    # under quant_hops="all" at k > 1 one tail launch for each of the 9
-    # leaves of x, y and u (v mixes with one hop).  The drop channel mixes
+    # under quant_hops="all" at k > 1 one grouped tail launch for each of
+    # the trees x, y and u (v mixes with one hop).  The drop channel mixes
     # by einsum.
     ef = _run_path("int8", (
         ("drgda", 30, True, 1, int8, {"quant_mix": 10, "ring_mix": 4,
                                       "multi_hop_mix_quant": 0}),
         ("drgda", 5, True, K_THEOREM1, int8_all,
-         {"quant_mix": 10, "ring_mix": 4, "multi_hop_mix_quant": 9,
+         {"quant_mix": 10, "ring_mix": 4, "multi_hop_mix_quant": 3,
           "multi_hop_mix": 0}),
         ("drgda", 10, True, 1, COMM_PRESETS["int8_ef_drop5"],
          {"quant_mix": 0, "ring_mix": 0, "multi_hop_mix_quant": 0})),
@@ -587,9 +596,11 @@ def main_path_phase() -> dict:
 
 
 OWN_KERNELS = ("gram_partial_kernel", "sym_reduce_kernel", "apply_kernel",
-               "finalize_kernel", "ring_mix_group_kernel",
-               "ring_hops_reg_kernel", "ring_hops_smem_kernel",
-               "quant_mix_kernel", "quant_hops_kernel")
+               "finalize_small_kernel", "finalize_full_kernel",
+               "finalize_cluster_kernel",
+               "ring_mix_group_kernel", "ring_hops_reg_kernel",
+               "ring_hops_smem_kernel", "quant_mix_kernel",
+               "quant_hops_reg_kernel", "quant_hops_kernel")
 
 
 def profile_phase(comms: dict, steps: int = 10) -> None:
@@ -783,6 +794,39 @@ def _paged_cost(q, kp, vp, bt, seq, window):
     return flops, nbytes
 
 
+def _flash_large_outputs(gen, gate, device="cuda") -> None:
+    """bf16 flash_attention with v in [6, 7.9], so that every output lies
+    in [4, 8), at the S=256 prefill and causal S=T=1024, against the
+    reference's fp32 arithmetic on the same bf16 inputs: there a bf16 ulp
+    is 2^-5, the output's own rounding takes up to 2^-6 of the 2e-2 gate,
+    and a kernel that rounds P or the scaled q to bf16 fails."""
+    import torch
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import ops, ref
+
+    for label, s, h, hkv in (("prefill S=T=256", 256, N_HEADS, N_KV_HEADS),
+                             ("causal S=T=1024", 1024, 2, 1)):
+        q = torch.randn((1, s, h, HEAD_DIM), generator=gen,
+                        device=device).to(torch.bfloat16)
+        k = torch.randn((1, s, hkv, HEAD_DIM), generator=gen,
+                        device=device).to(torch.bfloat16)
+        v = (6.0 + 1.9 * torch.rand((1, s, hkv, HEAD_DIM), generator=gen,
+                                    device=device)).to(torch.bfloat16)
+        route = _fa.route(q, k, v)
+        want = ref.blockwise_attention(q.float(), k.float(), v.float())
+        if not (4.0 <= float(want.min()) and float(want.max()) < 8.0):
+            raise AssertionError("flash_attention bf16: outputs outside "
+                                 "[4, 8)")
+        pos = torch.arange(s, dtype=torch.int32, device=device)[None]
+        run_case("flash_attention", [lambda: ops.flash_attention(q, k, v)],
+                 [lambda: ref.blockwise_attention(q.float(), k.float(),
+                                                  v.float())],
+                 absolute(gate),
+                 [_flash_cost(q, k, v, _attn_mask(pos, pos, True, None))],
+                 f"bfloat16 |out| in [4, 8) {label} [{route}]",
+                 peak=PEAK_FLOPS_BF16)
+
+
 def attention_kernel_phase(device="cuda") -> dict:
     """flash_attention and paged_decode against their plain versions in
     fp32 and bf16; returns the table rows (fp32, the serving path's
@@ -835,6 +879,8 @@ def attention_kernel_phase(device="cuda") -> dict:
                 lib_gate=1e-4 if dtype == torch.float32 else 1e-2)
             if dtype == torch.float32 and label == "prefill S=T=256":
                 rows["flash_attention"] = row
+        if dtype == torch.bfloat16:
+            _flash_large_outputs(gen, gate)
         # query rows without a usable key: exact zeros
         q = torch.randn((1, 256, N_HEADS, HEAD_DIM), generator=gen,
                         device=device).to(dtype)
@@ -1215,7 +1261,10 @@ def main() -> int:
     from repro_torch.launch.fair import COMM_PRESETS
     profile_phase({"full k=1": (None, 1),
                    "EF-int8 k=1": (COMM_PRESETS["int8_ef"], 1),
-                   f"full k={K_THEOREM1}": (None, K_THEOREM1)})
+                   f"full k={K_THEOREM1}": (None, K_THEOREM1),
+                   f"EF-int8 all k={K_THEOREM1}": (dataclasses.replace(
+                       COMM_PRESETS["int8_ef"], quant_hops="all"),
+                       K_THEOREM1)})
     log("agreement:")
     agreement_phase()
     # after the profile phase: its walls come before any profiler session

@@ -8,8 +8,10 @@ the card, the plain version on the CPU):
   * ``mix`` with ``steps > 1``        -> one ``multi_hop_mix`` launch per
     tree (per 16 leaves of it);
   * ``quant_ring_hop`` (int8 payload) -> one ``quant_mix`` launch;
-  * ``quant_ring_hops`` (all-hop int8) -> ``quantize_det``, then one
-    ``multi_hop_mix_quant`` launch for every hop.
+  * ``quant_ring_hops_leaves`` (all-hop int8 of a tree) ->
+    ``quantize_det`` per leaf, then one ``multi_hop_mix_quant`` launch for
+    every hop of every leaf (per 16 leaves); ``quant_ring_hops`` is its
+    one-leaf case.
 
 The kernels read the ring neighbours by wrapped row index, so no rolled
 copies are made.  Each is bitwise the JAX package's stacked expression (the
@@ -101,20 +103,31 @@ class StackedBackend:
         wc, ws = _weights(spec)
         return ops.quant_mix(q, scale, w_self=wc, w_side=ws)
 
+    def quant_ring_hops_leaves(self, spec, xs: list[torch.Tensor],
+                               steps: int) -> list[torch.Tensor]:
+        """``steps`` ring hops of each node-stacked leaf of ``xs`` (one
+        mixed tree) where EVERY hop is int8-compressed: each hop
+        requantizes its input deterministically and combines the decoded
+        values.  Quantizing the leaves here is the first hop's
+        requantization; one grouped kernel call runs all ``steps`` hops of
+        every leaf."""
+        if steps <= 0:
+            return list(xs)
+        n = xs[0].shape[0]
+        qs, scales = [], []
+        for x in xs:
+            q, s = quantize_det(x)
+            qs.append(q.reshape(n, -1))
+            scales.append(s.reshape(n, 1))
+        wc, ws = _weights(spec)
+        zs = ops.multi_hop_mix_quant_leaves(qs, scales, hops=steps,
+                                            w_self=wc, w_side=ws)
+        return [z.reshape(x.shape).to(x.dtype) for z, x in zip(zs, xs)]
+
     def quant_ring_hops(self, spec, x: torch.Tensor,
                         steps: int) -> torch.Tensor:
-        """``steps`` ring hops of one node-stacked leaf where EVERY hop is
-        int8-compressed: each hop requantizes its input deterministically
-        and combines the decoded values.  Quantizing ``x`` here is the
-        first hop's requantization; the kernel runs all ``steps`` hops."""
-        if steps <= 0:
-            return x
-        n = x.shape[0]
-        q, s = quantize_det(x)
-        wc, ws = _weights(spec)
-        z = ops.multi_hop_mix_quant(q.reshape(n, -1), s.reshape(n, 1),
-                                    hops=steps, w_self=wc, w_side=ws)
-        return z.reshape(x.shape).to(x.dtype)
+        """:meth:`quant_ring_hops_leaves` of one leaf."""
+        return self.quant_ring_hops_leaves(spec, [x], steps)[0]
 
     def est_hop_bytes(self, spec, tree) -> float:
         """Estimated bytes moved between nodes by one exact hop."""

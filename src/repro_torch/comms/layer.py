@@ -15,7 +15,7 @@ The hop runs through :class:`~repro_torch.comms.channel.ChannelModel`
 path.  For int8 payloads on a clean ring the first hop is the fused
 ``quant_mix`` kernel: ``W(hat + dq(q)) = W hat + [dequantize + 3-way
 combine of the int8 wire buffers]``; under ``quant_hops="all"`` the k - 1
-tail hops are one ``multi_hop_mix_quant`` launch per leaf.
+tail hops of a slot's tree are one grouped ``multi_hop_mix_quant`` launch.
 
 Randomness comes from the engine's draw source (``comms.compress``): the
 round's keys are ``(slot, rnd)`` for quantization and ``(slot/chan, rnd)``
@@ -199,9 +199,10 @@ class CommEngine:
                 return first
             if self.comm.quant_hops == "all":
                 # the tail hops stay on the int8 wire: every hop requantizes
-                # deterministically, all of them in one launch per leaf
-                return tree_map(lambda leaf: self.backend.quant_ring_hops(
-                    self.gossip, leaf, s - 1), first)
+                # deterministically, all of them in one launch per tree
+                leaves_first, unflatten_first = tree_flatten(first)
+                return unflatten_first(self.backend.quant_ring_hops_leaves(
+                    self.gossip, leaves_first, s - 1))
             return self.backend.mix(self.gossip, first, steps=s - 1)
         return self.backend.mix_channel(self.gossip, self.channel, hat_new,
                                         rnd, k_chan, steps=s)

@@ -42,9 +42,16 @@
 // split the keys of the same rows: each takes every 2nd or 4th used tile
 // and the warps of a row group merge (m, l, acc) in a fixed order at the
 // end (S=256, H=9, B=1: 144 blocks of 16 rows, 4 warps on the keys of
-// each; a block's chain of tiles is a quarter as long).  In bf16 the
-// probabilities are rounded to bf16 for P @ V, as SDPA does (relative
-// error 2^-9 on each weight; l sums the unrounded ones).
+// each; a block's chain of tiles is a quarter as long).
+//
+// bf16 keeps the reference's fp32 arithmetic (q * scale and P in fp32):
+// the raw bf16 q is exact as an A fragment and scale * log2(e) multiplies
+// the fp32 scores after the product, and P goes to P @ V as a bf16 high
+// part plus a bf16 residual, two products into the same fp32 acc (P to
+// about 2^-17 relative, as 3xTF32 does for fp32).  One rounding of P
+// (2^-9 relative on each weight, while l sums the unrounded ones) moves
+// the output by up to about |out| * 2^-10, which with the output's own
+// bf16 rounding passes the 2e-2 gate once |out| nears 8.
 //
 // Kept from the first version: the kv head is h / (H / Hkv), so K and V
 // are read in place for every query head of a group; q, k, v stay in the
@@ -350,6 +357,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
+// (x0, x1) = hi + lo to about 2^-17 relative, both packed bf16 pairs
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
 // 2^x on the special-function unit (flushes denormals; 2^-inf = 0)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -533,13 +548,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const int wq_min = __reduce_min_sync(0xffffffffu, min(qp0, qp1));
   const int wq_max = __reduce_max_sync(0xffffffffu, max(qp0, qp1));
   const float qs = scale * kLog2e;  // scores in log2 units: exp2 below
+  // fp32 q is scaled before its split; bf16 q goes in raw (exact) and its
+  // scores are scaled in fp32 after the product
   auto qval = [&](int r, int d) -> float {
     return r < S && d < hd
-               ? attn::to_f32(q[(((size_t)b * S + r) * H + h) * hd + d]) * qs
+               ? attn::to_f32(q[(((size_t)b * S + r) * H + h) * hd + d]) *
+                     (kBf16 ? 1.f : qs)
                : 0.f;
   };
-  // q as A fragments: tf32 m16n8k8 (raw fp32, split per use) or bf16
-  // m16n8k16 (packed pairs)
+  // q as A fragments: tf32 m16n8k8 (scaled fp32, split per use) or bf16
+  // m16n8k16 (raw, packed pairs)
   constexpr int QK = D / KS;
   float qf[kBf16 ? 1 : QK][4];
   uint32_t qb[kBf16 ? QK : 1][4];
@@ -637,6 +655,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         }
       }
 
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] *= qs;
+      }
+
       // mask, unless every row of the warp may use every key of the tile
       // (the tile's position range against the warp's), then the online
       // softmax on the fragments (rows g and g + 8)
@@ -702,10 +727,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       if constexpr (kBf16) {
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {
-          const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          uint32_t ah[4], al[4];
+          split_bf16(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+          split_bf16(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+          split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+          split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
           const T* vrow =
               vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
               (lane >> 4) * 8;
@@ -713,8 +739,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
           for (int i = 0; i < VT; i += 2) {
             uint32_t bv[4];
             ldmatrix_x4_trans(bv, vrow + i * 8);
-            mma_bf16(o[i], a, bv[0], bv[1]);
-            mma_bf16(o[i + 1], a, bv[2], bv[3]);
+            // the residual first: small terms before large, as 3xTF32
+            mma_bf16(o[i], al, bv[0], bv[1]);
+            mma_bf16(o[i + 1], al, bv[2], bv[3]);
+            mma_bf16(o[i], ah, bv[0], bv[1]);
+            mma_bf16(o[i + 1], ah, bv[2], bv[3]);
           }
         }
       } else {

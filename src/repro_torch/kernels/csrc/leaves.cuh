@@ -1,5 +1,6 @@
 // A group of node-stacked leaves mixed by one launch (ring_mix.cu,
-// multi_hop_mix.cu).
+// multi_hop_mix.cu; multi_hop_mix_quant.cu has a group of its own and
+// shares leaf_of).
 //
 // A mixed tree (the x of one optimizer step: four leaves of 72 to 50176
 // columns) used to cost one launch per leaf, and each launch its own host
@@ -31,8 +32,10 @@ struct LeafGroup {
 
 // The leaf that owns grid block b: the last leaf whose first block is <= b.
 // The loop is unrolled and its indices are constants, so it reads the
-// parameter bank directly; the branch is uniform across the block.
-__device__ __forceinline__ int leaf_of(const LeafGroup& g, long long b) {
+// parameter bank directly; the branch is uniform across the block.  Any
+// group with leaf[kMaxLeaves].first and count.
+template <class Group>
+__device__ __forceinline__ int leaf_of(const Group& g, long long b) {
   int j = 0;
 #pragma unroll
   for (int k = 1; k < kMaxLeaves; ++k)

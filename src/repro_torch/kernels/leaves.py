@@ -1,6 +1,7 @@
 """Host side of a grouped launch over node-stacked leaves
 (``csrc/leaves.cuh``): one output buffer for all the leaves, and one launch
-for every :data:`MAX_LEAVES` of them.
+for every :data:`MAX_LEAVES` of them (the int8 all-hop kernel builds its
+own launch from :func:`outputs`, :func:`pointers` and :func:`columns`).
 """
 from __future__ import annotations
 
@@ -17,17 +18,30 @@ _PTRS = ctypes.c_void_p * MAX_LEAVES
 _COLS = ctypes.c_longlong * MAX_LEAVES
 
 
-def outputs(xs: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Outputs of the leaves' shapes, all in ONE ``torch.empty``: each is a
-    contiguous view at its own offset, rounded up to 16 bytes so that the
+def outputs(xs: list[torch.Tensor],
+            dtype: torch.dtype | None = None) -> list[torch.Tensor]:
+    """Outputs of the leaves' shapes (in ``dtype``, by default the
+    leaves'), all in ONE ``torch.empty``: each is a contiguous view at its
+    own offset, rounded up to 16 bytes (for 4-byte elements) so that the
     kernels' float4 paths stay open."""
     sizes = [(x.numel() + 3) & ~3 for x in xs]
-    buf = torch.empty(sum(sizes), dtype=xs[0].dtype, device=xs[0].device)
+    buf = torch.empty(sum(sizes), dtype=dtype or xs[0].dtype,
+                      device=xs[0].device)
     outs, at = [], 0
     for x, size in zip(xs, sizes):
         outs.append(buf.as_strided(x.shape, x.stride(), at))
         at += size
     return outs
+
+
+def pointers(ts: list[torch.Tensor]):
+    """The tensors' data pointers as a C array of ``MAX_LEAVES``."""
+    return _PTRS(*[t.data_ptr() for t in ts])
+
+
+def columns(fs: list[int]):
+    """Column counts as a C array of ``MAX_LEAVES``."""
+    return _COLS(*fs)
 
 
 def run(name: str, entry, xs: list[torch.Tensor], *args
@@ -45,9 +59,9 @@ def run(name: str, entry, xs: list[torch.Tensor], *args
         for at in range(0, len(xs), MAX_LEAVES):
             part = range(at, min(at + MAX_LEAVES, len(xs)))
             build.check(name, entry(
-                _PTRS(*[xs[j].data_ptr() for j in part]),
-                _PTRS(*[outs[j].data_ptr() for j in part]),
-                _COLS(*[xs[j].numel() // n for j in part]), len(part), n,
+                pointers([xs[j] for j in part]),
+                pointers([outs[j] for j in part]),
+                columns([xs[j].numel() // n for j in part]), len(part), n,
                 *args, stream))
             made += 1
     return outs, made

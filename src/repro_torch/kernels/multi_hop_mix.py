@@ -1,10 +1,10 @@
 """Launchers of the CUDA multi-hop ring mixes: fp32 (``csrc/multi_hop_mix.cu``)
 and int8 all-hop (``csrc/multi_hop_mix_quant.cu``).
 
-``ops.multi_hop_mix_leaves`` / ``ops.multi_hop_mix_quant`` validate and
-shape the operands; this module picks the block width, allocates the
-outputs and scratch, launches on the current stream and counts the
-launches.
+``ops.multi_hop_mix_leaves`` / ``ops.multi_hop_mix_quant_leaves`` validate
+and shape the operands; this module picks the block width or the route,
+allocates the outputs and scratch, launches on the current stream and
+counts the launches.
 """
 from __future__ import annotations
 
@@ -80,6 +80,8 @@ def resources(n: int) -> tuple[int, int]:
 
 #: launches of the int8 all-hop kernel since the last reset
 quant_launches = 0
+#: columns per block of the on-chip route (``kRegThreads``)
+QUANT_BLOCK = 512
 
 
 @functools.cache
@@ -87,33 +89,63 @@ def _quant_lib():
     lib = build.library("multi_hop_mix_quant")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.repro_multi_hop_mix_quant.argtypes = [
-        p, p, p, p, p, i, ctypes.c_longlong, i, ctypes.c_float,
-        ctypes.c_float, p]
+        p, p, p, p, p, i, p, i, i, ctypes.c_float, ctypes.c_float, i, p]
     lib.repro_multi_hop_mix_quant.restype = ctypes.c_int
     lib.repro_multi_hop_mix_quant_smem.argtypes = [i]
     lib.repro_multi_hop_mix_quant_smem.restype = ctypes.c_longlong
+    lib.repro_multi_hop_mix_quant_capacity.argtypes = [i]
+    lib.repro_multi_hop_mix_quant_capacity.restype = ctypes.c_longlong
     return lib
 
 
-def launch_quant(q: torch.Tensor, scale: torch.Tensor, hops: int,
-                 w_self: float, w_side: float) -> torch.Tensor:
-    """``hops`` int8-compressed wrapped ring hops of a contiguous int8 CUDA
-    payload (n, f) with contiguous fp32 scales (n, 1), in one cooperative
-    launch; returns fp32 (n, f).  A launch the card refuses raises."""
+@functools.cache
+def quant_capacity(device: int, n: int) -> int:
+    """Blocks of the on-chip int8 kernel of an ``n``-node ring that card
+    ``device`` holds at once (0 for n > MAX_REG_ROWS)."""
+    with torch.cuda.device(device):
+        return int(_quant_lib().repro_multi_hop_mix_quant_capacity(n))
+
+
+def quant_onchip(device: int, n: int, fs: list[int]) -> bool:
+    """True when a launch of leaves of ``fs`` columns keeps its state on
+    chip: n <= MAX_REG_ROWS and one column per thread fits the resident
+    grid."""
+    blocks = sum(-(-f // QUANT_BLOCK) for f in fs)
+    return n <= MAX_REG_ROWS and blocks <= quant_capacity(device, n)
+
+
+def launch_quant(qs: list[torch.Tensor], scales: list[torch.Tensor],
+                 hops: int, w_self: float, w_side: float
+                 ) -> list[torch.Tensor]:
+    """``hops`` int8-compressed wrapped ring hops of each contiguous int8
+    CUDA payload (n, f_j) of ``qs`` with its contiguous fp32 scales (n, 1),
+    one launch for every ``leaves.MAX_LEAVES`` leaves (cooperative when it
+    spans blocks); returns the fp32 (n, f_j) results, views of one buffer.
+    A launch the card refuses raises."""
     global quant_launches
-    n, f = q.shape
+    n = qs[0].shape[0]
     lib = _quant_lib()
-    if lib.repro_multi_hop_mix_quant_smem(n) > _MAX_SMEM:
-        raise ValueError(f"multi_hop_mix_quant: a ring of {n} nodes does not "
-                         f"fit one block's shared memory")
-    out = torch.empty((n, f), dtype=torch.float32, device=q.device)
-    scratch = torch.empty_like(out) if hops > 1 else out
-    amax = torch.empty(3 * n, dtype=torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
+    device = qs[0].device
+    outs = leaves.outputs(qs, torch.float32)
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.repro_multi_hop_mix_quant(
-            q.data_ptr(), scale.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            amax.data_ptr(), n, f, hops, w_self, w_side, stream)
-    build.check("multi_hop_mix_quant", code)
-    quant_launches += 1
-    return out
+        for at in range(0, len(qs), leaves.MAX_LEAVES):
+            part = range(at, min(at + leaves.MAX_LEAVES, len(qs)))
+            fs = [qs[j].shape[1] for j in part]
+            onchip = quant_onchip(device.index or 0, n, fs)
+            if not onchip and lib.repro_multi_hop_mix_quant_smem(n) > _MAX_SMEM:
+                raise ValueError(f"multi_hop_mix_quant: a ring of {n} nodes "
+                                 f"does not fit one block's shared memory")
+            scratch = (leaves.outputs([qs[j] for j in part], torch.float32)
+                       if not onchip and hops > 1 else None)
+            amax = torch.empty(3 * len(part) * n, dtype=torch.int32,
+                               device=device)
+            build.check("multi_hop_mix_quant", lib.repro_multi_hop_mix_quant(
+                leaves.pointers([qs[j] for j in part]),
+                leaves.pointers([scales[j] for j in part]),
+                leaves.pointers([outs[j] for j in part]),
+                None if scratch is None else leaves.pointers(scratch),
+                leaves.columns(fs), len(part), amax.data_ptr(), n, hops,
+                w_self, w_side, int(onchip), stream))
+            quant_launches += 1
+    return outs

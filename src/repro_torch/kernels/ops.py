@@ -6,7 +6,7 @@
 There is no environment switch and no fallback: a CUDA tensor the kernel
 does not take (another dtype than float32, or than int8 for a compressed
 payload, or than float32/bfloat16 for attention; too many nodes; a head
-dim above 256) raises, and so does any other device.  The
+dim or a Stiefel r above 256) raises, and so does any other device.  The
 wrappers own the operand checks, flattening and contiguity, as the JAX
 package's ``kernels/ops.py`` does; the kernel modules only allocate,
 launch and count (:func:`launch_counts`).
@@ -110,12 +110,17 @@ def fused_retract(x: Tensor, g: Tensor, *,
     """R_x(P_{T_x}(g)) over the last two dims; leading dims (the node axis)
     are batched.  ``g`` is the AMBIENT update direction: the tangent
     projection happens inside the kernel.  The kernel's Gram identity needs
-    ``x`` on the manifold (x^T x = I)."""
+    ``x`` on the manifold (x^T x = I); on the card it takes r up to
+    ``retract.MAX_R`` (256)."""
     batch, d, r = _batched("fused_retract", x, g)
     if ns_iters < 0:
         raise ValueError(f"fused_retract: ns_iters={ns_iters} < 0")
     if not _on_card("fused_retract", x, g):
         return ref.fused_retract_ref(x, g, ns_iters=ns_iters)
+    if r > _rt.MAX_R:
+        raise ValueError(f"fused_retract: the CUDA kernel takes r up to "
+                         f"{_rt.MAX_R} (its (r, r) stage in the shared memory "
+                         f"of a cluster of 8 CTAs), got r={r}")
     out = _rt.launch(x.reshape(batch, d, r).contiguous(),
                      g.reshape(batch, d, r).contiguous(), ns_iters)
     return out.reshape(x.shape)
@@ -219,24 +224,57 @@ def quant_mix(q: Tensor, scale: Tensor, *, w_self: float,
                       w_side).reshape(q.shape)
 
 
+def multi_hop_mix_quant_leaves(qs: list[Tensor], scales: list[Tensor], *,
+                               hops: int, w_self: float,
+                               w_side: float) -> list[Tensor]:
+    """``hops`` int8-compressed ring hops of each node-stacked int8 payload
+    of ``qs`` with its per-node fp32 scales (``scales``, one tensor of n
+    per leaf): hop 0 decodes and combines the payload (:func:`quant_mix`),
+    every later hop requantizes each row deterministically
+    (``comms.compress.quantize_det``) and combines the decoded values.
+    Every leaf has the same n and lies on one device; returns fp32 of each
+    payload's shape.  On the card, ONE launch for every 16 leaves, with one
+    barrier a hop for all of them; each (leaf, row) keeps its own scale,
+    so every leaf's result is bitwise a launch of its own.  The plain
+    version is the JAX package's halo-panel oracle on the wrapped panel,
+    center rows."""
+    name = "multi_hop_mix_quant"
+    if hops < 1:
+        raise ValueError(f"{name}: hops={hops} < 1")
+    if (not isinstance(qs, (list, tuple)) or not qs
+            or not isinstance(scales, (list, tuple))
+            or len(scales) != len(qs)):
+        raise ValueError(f"{name}: want equal, non-empty lists of payloads "
+                         f"and scales")
+    n = _nodes(name, qs[0])[0]
+    flat = []
+    for q, scale in zip(qs, scales):
+        nq, f, s = _payload(name, q, scale)
+        if nq != n:
+            raise ValueError(f"{name}: leaves of {n} and {nq} nodes in one "
+                             f"call")
+        flat.append((q.reshape(n, f), s))
+    if not _on_card(name, *(q for q, _ in flat), *(s for _, s in flat),
+                    dtypes=(torch.int8,) * len(flat)
+                    + (torch.float32,) * len(flat)):
+        outs = []
+        for q2, s in flat:
+            z = ref.multi_hop_mix_quant_ref(
+                ref.ring_panel(q2, hops), ref.ring_panel(s, hops), hops=hops,
+                w_self=w_self, w_side=w_side)
+            outs.append(z[hops:hops + n])
+    else:
+        outs = _mh.launch_quant([q2.contiguous() for q2, _ in flat],
+                                [s.contiguous() for _, s in flat], hops,
+                                w_self, w_side)
+    return [o.reshape(q.shape) for o, q in zip(outs, qs)]
+
+
 def multi_hop_mix_quant(q: Tensor, scale: Tensor, *, hops: int,
                         w_self: float, w_side: float) -> Tensor:
-    """``hops`` int8-compressed ring hops in one launch: hop 0 decodes and
-    combines the payload (:func:`quant_mix`), every later hop requantizes
-    each row deterministically (``comms.compress.quantize_det``) and
-    combines the decoded values.  The plain version is the JAX package's
-    halo-panel oracle on the wrapped panel, center rows."""
-    n, f, s = _payload("multi_hop_mix_quant", q, scale)
-    if hops < 1:
-        raise ValueError(f"multi_hop_mix_quant: hops={hops} < 1")
-    if not _on_card("multi_hop_mix_quant", q, s,
-                    dtypes=(torch.int8, torch.float32)):
-        z = ref.multi_hop_mix_quant_ref(
-            ref.ring_panel(q, hops), ref.ring_panel(s, hops), hops=hops,
-            w_self=w_self, w_side=w_side)
-        return z[hops:hops + n].reshape(q.shape)
-    return _mh.launch_quant(q.reshape(n, f).contiguous(), s.contiguous(),
-                            hops, w_self, w_side).reshape(q.shape)
+    """:func:`multi_hop_mix_quant_leaves` of one leaf."""
+    return multi_hop_mix_quant_leaves([q], [scale], hops=hops, w_self=w_self,
+                                      w_side=w_side)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Launcher of the CUDA fused polar retraction (``csrc/retract.cu``).
 
 ``ops.fused_retract`` validates and shapes the operands; this module only
-allocates the outputs and scratch, launches on the current stream and counts
-the launches.
+allocates the outputs, launches on the current stream and counts the
+launches.
 """
 from __future__ import annotations
 
@@ -19,29 +19,32 @@ launches = 0
 
 DEFAULT_NS_ITERS = 20
 
-# Shared memory one block may use on sm_90, and the finalize kernel's static
-# reduction buffer (256 floats) beside its six dynamic (r, r) matrices; the
-# same test decides in retract.cu between shared memory and global scratch.
-_MAX_SMEM = 232448
-_RED_BYTES = 256 * 4
-
-
-def needs_scratch(r: int) -> bool:
-    """True when the (r, r) stage runs out of global memory (r > 98)."""
-    return 6 * r * r * 4 + _RED_BYTES > _MAX_SMEM
+#: the largest r the kernel takes: seven (r/8, r) fp32 panels per CTA of a
+#: cluster of 8 must fit 227 KB of shared memory (``kMaxR``)
+MAX_R = 256
 
 
 @functools.cache
-def _entry():
-    fn = build.library("retract").repro_fused_retract
+def _lib():
+    lib = build.library("retract")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.repro_fused_retract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, p]
+    lib.repro_fused_retract.restype = ctypes.c_int
+    lib.repro_fused_retract_cluster.argtypes = [i]
+    lib.repro_fused_retract_cluster.restype = ctypes.c_int
+    return lib
+
+
+def cluster_size(r: int) -> int:
+    """CTAs per node of the kernel's (r, r) stage, as the built library
+    chooses them (1: one block; 0: r is not taken)."""
+    return _lib().repro_fused_retract_cluster(r)
 
 
 def launch(x: torch.Tensor, g: torch.Tensor, ns_iters: int) -> torch.Tensor:
-    """R_x(P_x(g)) for contiguous fp32 CUDA tensors of shape (batch, d, r)."""
+    """R_x(P_x(g)) for contiguous fp32 CUDA tensors of shape (batch, d, r),
+    r <= MAX_R."""
     global launches
     batch, d, r = x.shape
     chunk, n_chunks = d_chunks(d)
@@ -52,14 +55,12 @@ def launch(x: torch.Tensor, g: torch.Tensor, ns_iters: int) -> torch.Tensor:
     out = empty(batch, d, r)
     pb, pc = empty(batch, n_chunks, r, r), empty(batch, n_chunks, r, r)
     m1, m2 = empty(batch, r, r), empty(batch, r, r)
-    scratch = empty(batch, 6, r, r) if needs_scratch(r) else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _entry()(x.data_ptr(), g.data_ptr(), out.data_ptr(),
-                        pb.data_ptr(), pc.data_ptr(), m1.data_ptr(),
-                        m2.data_ptr(),
-                        None if scratch is None else scratch.data_ptr(),
-                        batch, d, r, chunk, n_chunks, ns_iters, stream)
+        code = _lib().repro_fused_retract(
+            x.data_ptr(), g.data_ptr(), out.data_ptr(), pb.data_ptr(),
+            pc.data_ptr(), m1.data_ptr(), m2.data_ptr(), batch, d, r, chunk,
+            n_chunks, ns_iters, stream)
     build.check("retract", code)
     launches += 1
     return out

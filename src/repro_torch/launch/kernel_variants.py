@@ -1,0 +1,197 @@
+"""Time design alternatives of two kernels on one card: ``csrc/retract.cu``
+under other cluster and tile shapes of its (r, r) stage, and
+``csrc/multi_hop_mix_quant.cu`` with every requantization an IEEE
+division; prints the card and one JSON line.
+
+    python -m repro_torch.launch.kernel_variants
+
+Each variant is a copy of the source with one line replaced (the ``using
+CfgNN = Cfg<...>`` line, or the test that sends a quotient near a
+half-integer to the division), compiled with the same ``nvcc`` flags as
+``kernels/build.py`` into ``build/kernels/variants/`` (all at once), and
+called through the port's own wrappers, whose library handle is swapped
+for the variant's.  For each variant and shape: the max abs error against
+the plain version (retract) or bitwise equality (int8 hops), and the
+device time of the variant's kernels per call under ``torch.profiler``
+(``self_device_time_total`` of the CUDA events): the (r, r) stage alone
+for retract (``finalize``), the whole launch for the int8 hops.  The
+shipped configuration is the variant named ``shipped`` of each group.
+Compare variants only within one call on one card.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+
+import torch
+
+from repro_torch.kernels import build, ops, ref
+
+N_NODES = 20
+HOPS = 66        # the EF-int8 k = 67 step's tail
+# group -> (source, the line pattern, {variant: replacement line}); the
+# first variant of a group is the shipped configuration
+RETRACT = {
+    "r<=64": (r"using Cfg64 = Cfg<[^>]*>;", {
+        "shipped": None,
+        "4 CTAs, 1x4": "using Cfg64 = Cfg<4, 16, 1, 4, true>;",
+        "4 CTAs, 4x4": "using Cfg64 = Cfg<4, 16, 4, 4, true>;",
+        "2 CTAs, 4x4": "using Cfg64 = Cfg<2, 32, 4, 4, true>;",
+        "8 CTAs, 2x4": "using Cfg64 = Cfg<8, 8, 2, 4, true>;",
+        "8 CTAs, 1x4": "using Cfg64 = Cfg<8, 8, 1, 4, true>;"}),
+    "r<=128": (r"using Cfg128 = Cfg<[^>]*>;", {
+        "shipped": None,
+        "2x4": "using Cfg128 = Cfg<8, 16, 2, 4, false>;"}),
+    "r<=256": (r"using Cfg256 = Cfg<[^>]*>;", {
+        "shipped": None,
+        "4x8": "using Cfg256 = Cfg<8, 32, 4, 8, false>;"}),
+}
+RETRACT_SHAPES = {"r<=64": [(N_NODES, 784, 64), (N_NODES, 1000, 37)],
+                  "r<=128": [(N_NODES, 4096, 99), (N_NODES, 4096, 128)],
+                  "r<=256": [(N_NODES, 4096, 256)]}
+QUANT = (r"near = fabsf\(0\.5f - fabsf\(y - k\)\) < 1e-4f;",
+         {"shipped": None, "ieee division": "near = true;"})
+QUANT_TREES = {"x tree": [72, 1152, 50176, 192], "y": [3]}
+
+
+def _compile(name: str, source: str, pattern: str, line: str | None):
+    """Start nvcc on a copy of ``source`` with ``pattern`` replaced by
+    ``line`` (the source as it is for None); returns (process, library)."""
+    out = build.BUILD_DIR / "variants" / re.sub(r"\W+", "_", name)
+    out.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, out)
+    text = (build.CSRC / source).read_text()
+    if line is not None:
+        text, count = re.subn(pattern, line, text)
+        if count != 1:
+            raise RuntimeError(f"{name}: {pattern!r} matched {count} times")
+    (out / source).write_text(text)
+    lib = out / "lib.so"
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(out / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def _load(lib_path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(lib_path))
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def device_us(fn, match: str, calls: int = 10) -> float:
+    """Device microseconds per call of ``fn``'s CUDA kernels whose name
+    holds ``match``, under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and match in e.key) / calls
+
+
+def main() -> int:
+    from repro_torch.comms.compress import quantize_det
+    from repro_torch.kernels import multi_hop_mix as _mh
+    from repro_torch.kernels import retract as _rt
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    jobs = {}
+    for group, (pattern, variants) in RETRACT.items():
+        for v, line in variants.items():
+            jobs[("retract", group, v)] = _compile(
+                f"retract {group} {v}", "retract.cu", pattern, line)
+    for v, line in QUANT[1].items():
+        jobs[("quant", "", v)] = _compile(f"quant {v}", "multi_hop_mix_quant.cu",
+                                          QUANT[0], line)
+    libs = {}
+    for key, (proc, lib) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log[-3000:]}")
+        libs[key] = _load(lib)
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out: dict = {"retract": {}, "quant": {}}
+    real_rt, real_mh = _rt._lib, _mh._quant_lib
+    try:
+        for group, shapes in RETRACT_SHAPES.items():
+            for shape in shapes:
+                x = torch.linalg.qr(torch.randn(shape, generator=gen,
+                                                device=dev))[0].contiguous()
+                g = 0.5 * x + 0.1 * torch.randn(shape, generator=gen,
+                                                device=dev)
+                want = ref.fused_retract_ref(x, g)
+                for v in RETRACT[group][1]:
+                    lib = libs[("retract", group, v)]
+                    _rt._lib = lambda lib=lib: _configure_retract(lib)
+                    err = float((ops.fused_retract(x, g) - want).abs().max())
+                    us = device_us(lambda: ops.fused_retract(x, g),
+                                   "finalize")
+                    out["retract"][f"{shape} {v}"] = {"max_abs_err": err,
+                                                      "finalize_us": us}
+        for tree, widths in QUANT_TREES.items():
+            qs, ss = [], []
+            for f in widths:
+                q, s = quantize_det(torch.randn((N_NODES, f), generator=gen,
+                                                device=dev))
+                qs.append(q)
+                ss.append(s.reshape(N_NODES, 1))
+            wants = [ref.multi_hop_mix_quant_ref(
+                ref.ring_panel(q, HOPS), ref.ring_panel(s, HOPS), hops=HOPS,
+                w_self=1 / 3, w_side=1 / 3)[HOPS:HOPS + N_NODES]
+                for q, s in zip(qs, ss)]
+            for v in QUANT[1]:
+                lib = libs[("quant", "", v)]
+                _mh._quant_lib = lambda lib=lib: _configure_quant(lib)
+
+                def call():
+                    return ops.multi_hop_mix_quant_leaves(
+                        qs, ss, hops=HOPS, w_self=1 / 3, w_side=1 / 3)
+
+                same = all(torch.equal(a, b) for a, b in zip(call(), wants))
+                out["quant"][f"{tree} {v}"] = {
+                    "bitwise": same, "device_us": device_us(call, "quant")}
+    finally:
+        _rt._lib, _mh._quant_lib = real_rt, real_mh
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _configure_retract(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_fused_retract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, p]
+    lib.repro_fused_retract.restype = ctypes.c_int
+    return lib
+
+
+def _configure_quant(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_multi_hop_mix_quant.argtypes = [
+        p, p, p, p, p, i, p, i, i, ctypes.c_float, ctypes.c_float, i, p]
+    lib.repro_multi_hop_mix_quant.restype = ctypes.c_int
+    lib.repro_multi_hop_mix_quant_smem.argtypes = [i]
+    lib.repro_multi_hop_mix_quant_smem.restype = ctypes.c_longlong
+    return lib
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,9 @@
 """Time one DRGDA step's ring mixes through the stacked backend, the mix
-of a (20, 1M) leaf with 1, 3 and 67 hops, and the k = 1 and Theorem-1
-k = 67 steps themselves, on one card; prints the card and one JSON line.
+of a (20, 1M) leaf with 1, 3 and 67 hops, the EF-int8 k = 67 step's
+all-hop int8 tail (66 hops of x, u and y), the fused retraction at the
+step's two Stiefel leaves and at stress shapes, and the k = 1, Theorem-1
+k = 67 and EF-int8 ``quant_hops="all"`` k = 67 steps themselves, on one
+card; prints the card and one JSON line.
 
     python -m repro_torch.launch.mix_timing
 
@@ -14,8 +17,10 @@ call).  The steps: host-clock medians of synchronized steps, the two
 configurations taken in turns, and the profiler's device time and kernel
 count per step.  Every host-clock and CUDA-event time is taken before the
 first profiler session.  The script calls only what every version of the
-port has (``StackedBackend.mix``, ``launch.fair.prepare``), so the same
-file also times an older checkout of the port:
+port has (``StackedBackend.mix`` and ``quant_ring_hops``, or
+``quant_ring_hops_leaves`` where the port has it, ``ops.fused_retract``,
+``launch.fair.prepare``), so the same file also times an older checkout
+of the port:
 
     PYTHONPATH=<checkout>/src python src/repro_torch/launch/mix_timing.py
 
@@ -74,9 +79,9 @@ def step_walls(runs: dict, rounds: int = 4, per_round: int = 5) -> dict:
     return {k: statistics.median(w) for k, w in walls.items()}
 
 
-def device_us(fn, calls: int = 20) -> tuple[float, float]:
-    """(device microseconds, kernels) per call of ``fn`` under the
-    profiler: the CUDA events' self time, summed."""
+def device_us(fn, calls: int = 20) -> tuple[float, float, dict]:
+    """(device microseconds, kernels, microseconds by kernel name) per call
+    of ``fn`` under the profiler: the CUDA events' self time, summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -89,14 +94,18 @@ def device_us(fn, calls: int = 20) -> tuple[float, float]:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     return (sum(e.self_device_time_total for e in events) / calls,
-            sum(e.count for e in events) / calls)
+            sum(e.count for e in events) / calls,
+            {e.key[:100]: e.self_device_time_total / calls for e in events})
 
 
 def main() -> int:
+    import dataclasses
+
     import repro_torch
     from repro_torch.comms.backend import StackedBackend
     from repro_torch.core.gossip import GossipSpec
-    from repro_torch.launch.fair import prepare
+    from repro_torch.kernels import ops
+    from repro_torch.launch.fair import COMM_PRESETS, prepare
 
     if not torch.cuda.is_available():
         raise SystemExit("mix_timing: no CUDA device")
@@ -113,7 +122,29 @@ def main() -> int:
     y, v = (torch.randn(Y_LEAF, generator=gen, device=dev) for _ in range(2))
     big = torch.randn((N_NODES, 1 << 20), generator=gen, device=dev)
     spec, backend = GossipSpec(n_nodes=N_NODES), StackedBackend()
+
+    def quant_tail(t):
+        """The all-hop int8 tail of one tree, as the comms engine calls it."""
+        leaves = list(t.values()) if isinstance(t, dict) else [t]
+        if hasattr(backend, "quant_ring_hops_leaves"):
+            return backend.quant_ring_hops_leaves(spec, leaves, K_THEOREM1 - 1)
+        return [backend.quant_ring_hops(spec, leaf, K_THEOREM1 - 1)
+                for leaf in leaves]
+
+    def stiefel(shape):
+        xs = torch.linalg.qr(torch.randn(shape, generator=gen, device=dev))[0]
+        return xs, 0.5 * xs + 0.1 * torch.randn(shape, generator=gen,
+                                                device=dev)
+
+    fc1, head = stiefel(X_LEAVES[2]), stiefel(X_LEAVES[3])
+    stress = {r: stiefel((N_NODES, 4096 if r > 37 else 1000, r))
+              for r in (37, 99, 256)}
     cases = {
+        "quant_tail_k67": lambda: [quant_tail(t) for t in (x, u, y)],
+        "retract_step": lambda: [ops.fused_retract(*fc1),
+                                 ops.fused_retract(*head)],
+        **{f"retract_r{r}": (lambda r=r: ops.fused_retract(*stress[r]))
+           for r in stress},
         "mix_k1": lambda: [backend.mix(spec, t, 1) for t in (x, y, u, v)],
         "mix_k67": lambda: ([backend.mix(spec, t, K_THEOREM1)
                              for t in (x, y, u)]
@@ -125,11 +156,18 @@ def main() -> int:
     out = {"port": str(repro_torch.__file__)}
     for name, fn in cases.items():
         out[f"{name}_ms"] = event_ms(fn)
-    runs = {k: prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
-                       k_steps=k, device=dev) for k in (1, K_THEOREM1)}
+    int8_all = dataclasses.replace(COMM_PRESETS["int8_ef"], quant_hops="all")
+    runs = {f"k{k}": prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
+                             k_steps=k, device=dev) for k in (1, K_THEOREM1)}
+    runs[f"int8_all_k{K_THEOREM1}"] = prepare(
+        "drgda", True, image_hw=28, n_nodes=N_NODES, k_steps=K_THEOREM1,
+        device=dev, comm=int8_all)
     walls = step_walls(runs)
     for name, fn in cases.items():
-        out[f"{name}_device_us"] = device_us(fn)[0]
+        total, _, by_kernel = device_us(fn)
+        out[f"{name}_device_us"] = total
+        if name.startswith(("retract", "quant")):
+            out[f"{name}_by_kernel_us"] = by_kernel
     for k, run in runs.items():
         state = run.state
 
@@ -137,8 +175,8 @@ def main() -> int:
             nonlocal state
             state, _ = run.opt.step(state, run.full)
 
-        out[f"step_k{k}_us"] = walls[k]
-        out[f"step_k{k}_device_us"], out[f"step_k{k}_kernels"] = \
+        out[f"step_{k}_us"] = walls[k]
+        out[f"step_{k}_device_us"], out[f"step_{k}_kernels"], _ = \
             device_us(step, calls=5)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -270,6 +270,38 @@ def test_engine_round_matches_reference(compressor, quant_hops, gamma_mode):
         slots1["x"], k)
 
 
+def test_engine_all_hops_take_one_backend_call_per_tree(monkeypatch):
+    """Under ``quant_hops="all"`` the k - 1 tail hops of a slot's tree are
+    ONE ``quant_ring_hops_leaves`` call over all its leaves (one grouped
+    kernel launch on the card), and the round still matches the JAX
+    engine bit for bit."""
+    from repro_torch.comms.backend import StackedBackend
+    calls = []
+    grouped = StackedBackend.quant_ring_hops_leaves
+
+    def spy(self, spec, xs, steps):
+        calls.append((len(xs), steps))
+        return grouped(self, spec, xs, steps)
+
+    monkeypatch.setattr(StackedBackend, "quant_ring_hops_leaves", spy)
+    n, k = 5, 3
+    comm = CommSpec(compressor="int8", gamma=0.8, quant_hops="all", seed=4)
+    je, te = _engines(comm, n, k)
+    rng = np.random.default_rng(12)
+    slots = _slots(rng, n)
+    js = je.init_state({s: jax.tree.map(jnp.asarray, t)
+                        for s, t in slots.items()})
+    ts = te.init_state({s: _to_port(t) for s, t in slots.items()})
+    for rnd in range(2):
+        calls.clear()
+        for slot, tree in slots.items():
+            jout, js = _jround(je, js, slot, tree, k, rnd)
+            tout, ts = te.mix(ts, slot, _to_port(tree), steps=k, rnd=rnd)
+            _assert_tree(tout, jout)
+            _assert_tree(ts.hats[slot], js.hats[slot])
+        assert calls == [(4, k - 1), (1, k - 1)]
+
+
 @pytest.mark.parametrize("comm", [
     CommSpec(drop_rate=0.3, seed=1),
     CommSpec(compressor="int8", gamma=0.9, drop_rate=0.2,

@@ -9,7 +9,8 @@ machine that has only PyTorch:
 Gates as in ``chip_smoke.py``: the ring mixes (fp32 and int8, one leaf
 or a grouped tree) bitwise,
 stiefel_project 1e-5 relative, fused_retract 5e-5 absolute, the attention
-kernels 2e-5 absolute in fp32 and 2e-2 in bf16 (the JAX package's gates),
+kernels 2e-5 absolute in fp32 and 2e-2 in bf16 (the JAX package's gates;
+bf16 with outputs in [4, 8) against the reference's unrounded fp32 result),
 with exact zeros for query rows without keys and for empty decode slots.
 """
 from __future__ import annotations
@@ -115,6 +116,37 @@ def test_cuda_stiefel_kernels_vs_plain(cuda, shape):
     assert float((got - ref.fused_retract_ref(x, g)).abs().max()) <= 5e-5
 
 
+@pytest.mark.parametrize("r,ctas", [(3, 1), (37, 4), (64, 4), (98, 8),
+                                    (99, 8), (128, 8), (256, 8)])
+def test_cuda_fused_retract_every_cluster_size(cuda, r, ctas):
+    """The (r, r) stage on one block (r <= 32) or a cluster of 4 or 8 CTAs
+    per node, across r = 98 / 99 (where six (r, r) fp32 matrices stop
+    fitting one block's shared memory) up to the largest r taken, against
+    the plain version (5e-5)."""
+    from repro_torch.kernels import retract as _rt
+    assert _rt.cluster_size(r) == ctas
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    shape = (3, max(2 * r, 300), r)
+    x = torch.linalg.qr(torch.randn(shape, generator=gen, device=cuda))[0]
+    g = 0.5 * x + 0.1 * torch.randn(shape, generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.fused_retract(x, g)
+    assert ops.launch_counts()["fused_retract"] == 1
+    assert float((got - ref.fused_retract_ref(x, g)).abs().max()) <= 5e-5
+    # ns_iters = 0 and a single node take the same stages
+    got = ops.fused_retract(x[:1], g[:1], ns_iters=0)
+    want = ref.fused_retract_ref(x[:1], g[:1], ns_iters=0)
+    assert float((got - want).abs().max()) <= 5e-5
+
+
+def test_cuda_fused_retract_refuses_r_above_256(cuda):
+    from repro_torch.kernels import retract as _rt
+    assert _rt.cluster_size(257) == 0
+    x = torch.zeros(2, 300, 257, device=cuda)
+    with pytest.raises(ValueError, match="up to 256"):
+        ops.fused_retract(x, x)
+
+
 def test_cuda_wrappers_raise_on_fp64(cuda):
     x = torch.randn(4, 8, 2, device=cuda, dtype=torch.float64)
     for call in (lambda: ops.ring_mix(x, w_self=WC, w_side=WS),
@@ -163,6 +195,84 @@ def test_cuda_quant_ring_hops_is_the_plain_schedule(cuda):
             z = _quant_hop_plain(q.reshape(20, -1),
                                  s.reshape(20, 1)).reshape(shape)
         assert torch.equal(StackedBackend().quant_ring_hops(spec, x, 7), z)
+
+
+# the fair CNN's per-node leaf widths: y (and v), conv1, head, conv2, fc1
+QUANT_TREE = [3, 72, 192, 1152, 50176]
+
+
+def _quant_tree(cuda, n, widths, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    qs, ss = [], []
+    for f in widths:
+        q, s = quantize_det(torch.randn((n, f), generator=gen, device=cuda))
+        qs.append(q)
+        ss.append(s.reshape(n, 1))
+    return qs, ss
+
+
+def _quant_hops_oracle(q, s, hops):
+    n = q.shape[0]
+    return ref.multi_hop_mix_quant_ref(
+        ref.ring_panel(q, hops), ref.ring_panel(s, hops), hops=hops,
+        w_self=WC, w_side=WS)[hops:hops + n]
+
+
+@pytest.mark.parametrize("hops", [1, 2, 3, 66])
+def test_cuda_quant_hops_leaves_bitwise_one_launch(cuda, hops):
+    """One launch for a mixed tree (the state on chip, one barrier a hop
+    for all leaves), and each leaf alone (y: one block, no grid barrier):
+    every leaf bitwise the plain version."""
+    from repro_torch.kernels import multi_hop_mix as _mh
+    n = 20
+    qs, ss = _quant_tree(cuda, n, QUANT_TREE, hops)
+    assert _mh.quant_onchip(torch.cuda.current_device(), n,
+                            QUANT_TREE)
+    ops.reset_launch_counts()
+    got = ops.multi_hop_mix_quant_leaves(qs, ss, hops=hops, w_self=WC,
+                                         w_side=WS)
+    assert ops.launch_counts()["multi_hop_mix_quant"] == 1
+    for q, s, g in zip(qs, ss, got):
+        assert torch.equal(g, _quant_hops_oracle(q, s, hops))
+        assert torch.equal(ops.multi_hop_mix_quant(q, s, hops=hops, w_self=WC,
+                                                   w_side=WS), g)
+    assert ops.launch_counts()["multi_hop_mix_quant"] == 1 + len(qs)
+
+
+@pytest.mark.parametrize("n,widths", [
+    (20, [3, 1 << 18]),          # past the resident grid: blocks shared out
+    (40, [3, 72, 1152, 5000]),   # more rows than the on-chip route keeps
+])
+def test_cuda_quant_hops_leaves_global_route(cuda, n, widths):
+    from repro_torch.kernels import multi_hop_mix as _mh
+    assert not _mh.quant_onchip(torch.cuda.current_device(), n, widths)
+    qs, ss = _quant_tree(cuda, n, widths, n)
+    for hops in (1, 2, 7):
+        ops.reset_launch_counts()
+        got = ops.multi_hop_mix_quant_leaves(qs, ss, hops=hops, w_self=WC,
+                                             w_side=WS)
+        assert ops.launch_counts()["multi_hop_mix_quant"] == 1
+        for q, s, g in zip(qs, ss, got):
+            assert torch.equal(g, _quant_hops_oracle(q, s, hops)), hops
+
+
+def test_cuda_quant_ring_hops_leaves_is_the_plain_schedule(cuda):
+    """The backend's tree call == hop by hop quantize_det + quant_mix on
+    each leaf, the JAX package's stacked schedule."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    spec = GossipSpec(n_nodes=20)
+    xs = [torch.randn(shape, generator=gen, device=cuda) for shape in
+          [(20, 8, 1, 3, 3), (20, 16, 8, 3, 3), (20, 784, 64), (20, 64, 3)]]
+    ops.reset_launch_counts()
+    got = StackedBackend().quant_ring_hops_leaves(spec, xs, 9)
+    assert ops.launch_counts()["multi_hop_mix_quant"] == 1
+    for x, g in zip(xs, got):
+        z = x
+        for _ in range(9):
+            q, s = quantize_det(z)
+            z = _quant_hop_plain(q.reshape(20, -1),
+                                 s.reshape(20, 1)).reshape(x.shape)
+        assert torch.equal(g, z)
 
 
 def test_cuda_quant_wrappers_refuse_other_dtypes(cuda):
@@ -221,6 +331,35 @@ def test_cuda_flash_attention_vs_plain(cuda, case, dtype):
                                    q_positions=qpos)
     assert got.dtype == dtype and got.shape == (b, s, h, hdv)
     assert float((got.float() - want.float()).abs().max()) <= ATTN_GATE[dtype]
+
+
+@pytest.mark.parametrize("case", [
+    # b, s, t, h, hkv, causal
+    (1, 256, 256, 9, 3, True),       # smollm prefill
+    (1, 1024, 1024, 2, 1, True),     # causal S=T=1024
+])
+def test_cuda_flash_attention_bf16_large_outputs(cuda, case):
+    """bf16 on the tensor cores with every output in [4, 8), under the
+    2e-2 gate, against the reference's fp32 arithmetic on the same bf16
+    inputs.  There one bf16 ulp is 2^-5: the output's own rounding costs
+    up to 2^-6 = 0.0156, which leaves 0.0044 for the kernel.  Rounding P
+    (or the scaled q) to bf16 moves the output by about |out| * 2^-10 and
+    fails here; the rounded reference is no yardstick, since two roundings
+    of values a hair apart differ by a whole ulp."""
+    b, s, t, h, hkv, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn((b, s, h, 64), generator=gen, device=cuda)
+    k = torch.randn((b, t, hkv, 64), generator=gen, device=cuda)
+    v = 6.0 + 1.9 * torch.rand((b, t, hkv, 64), generator=gen, device=cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    qpos = torch.arange(t - s, t, dtype=torch.int32,
+                        device=cuda).expand(b, s)
+    got = ops.flash_attention(q, k, v, causal=causal, q_positions=qpos)
+    want = ref.blockwise_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, q_positions=qpos)
+    assert 4.0 <= float(want.min()) and float(want.max()) < 8.0
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) <= ATTN_GATE[torch.bfloat16]
 
 
 def test_cuda_flash_rows_without_keys_are_exact_zeros(cuda):

@@ -16,7 +16,9 @@ NumPy inputs.  Tolerances:
 * fused_retract: 5e-5 against ``retract_polar(..., method="eigh")`` (the
   JAX package's own gate) and against its Pallas kernel (ns_iters = 20
   pinned, so no tuned config applies).
-* quant_mix / multi_hop_mix_quant: bitwise against the eager oracles and
+* quant_mix / multi_hop_mix_quant, one leaf or a grouped tree
+  (``multi_hop_mix_quant_leaves``, and the stacked backend's
+  ``quant_ring_hops_leaves``): bitwise against the eager oracles and
   against the JAX package's stacked hop-by-hop ``quant_ring_hops`` run
   eagerly.  Against the Pallas kernels in interpret mode (jitted, so the
   combine may be FMA-contracted): quant_mix within one rounding of its
@@ -33,6 +35,8 @@ NumPy inputs.  Tolerances:
 The CUDA kernels themselves are tested in ``test_torch_cuda.py``.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import pytest
@@ -282,6 +286,86 @@ def test_multi_hop_mix_quant_vs_reference(n, f, hops):
     assert np.abs(got - pallas).max() <= np.abs(got).max() / 127.0
 
 
+# a mixed tree of the fair CNN's leaf widths per node: y / head's rows,
+# conv1, head, conv2 and a wider fc1 stand-in
+QUANT_TREE = [(3,), (8, 1, 3, 3), (64, 3), (16, 8, 3, 3), (300,)]
+
+
+@pytest.mark.parametrize("n,hops", [(5, 1), (5, 2), (4, 3), (6, 9)])
+def test_multi_hop_mix_quant_leaves_vs_halo_oracle(n, hops):
+    """The grouped int8 all-hop entry == the JAX package's halo-panel
+    oracle on each leaf's wrapped panel and its stacked hop-by-hop
+    schedule (eager), bit for bit, leaf by leaf; nothing launches on the
+    CPU."""
+    rng = np.random.default_rng(100 * n + hops)
+    xs, qs, ss = [], [], []
+    for shape in QUANT_TREE:
+        x, q, s = _payload(rng, (n, *shape))
+        xs.append(x)
+        qs.append(q)
+        ss.append(s)
+    ops.reset_launch_counts()
+    got = ops.multi_hop_mix_quant_leaves(qs, ss, hops=hops, w_self=WC,
+                                         w_side=WS)
+    assert ops.launch_counts()["multi_hop_mix_quant"] == 0
+    assert len(got) == len(qs)
+    for x, q, s, g in zip(xs, qs, ss, got):
+        assert g.shape == q.shape and g.dtype == torch.float32
+        f = x.size // n
+        idx = (np.arange(n + 2 * hops) - hops) % n
+        oracle = np.asarray(jref.multi_hop_mix_quant_ref(
+            jnp.asarray(_np(q).reshape(n, f)[idx]),
+            jnp.asarray(_np(s).reshape(n, 1)[idx]), hops=hops, w_self=WC,
+            w_side=WS))[hops:hops + n]
+        np.testing.assert_array_equal(_np(g).reshape(n, f), oracle)
+        with jax.disable_jit():
+            stacked = np.asarray(JStacked().quant_ring_hops(
+                JGossip(n_nodes=n), jnp.asarray(x), hops))
+        np.testing.assert_array_equal(_np(g), stacked)
+        np.testing.assert_array_equal(
+            _np(g), _np(ops.multi_hop_mix_quant(q, s, hops=hops, w_self=WC,
+                                                w_side=WS)))
+
+
+def test_stacked_backend_quant_ring_hops_leaves_vs_jax():
+    """The backend's tree call == the JAX package's stacked schedule leaf
+    by leaf (eager), fp32 in, each leaf's shape and dtype out."""
+    n, steps = 5, 4
+    rng = np.random.default_rng(3)
+    xs = [rng.normal(size=(n, *s)).astype(np.float32) for s in QUANT_TREE]
+    got = TStacked().quant_ring_hops_leaves(TGossip(n_nodes=n),
+                                            [_t(x) for x in xs], steps)
+    for x, g in zip(xs, got):
+        with jax.disable_jit():
+            want = np.asarray(JStacked().quant_ring_hops(
+                JGossip(n_nodes=n), jnp.asarray(x), steps))
+        assert g.shape == x.shape
+        np.testing.assert_array_equal(_np(g), want)
+    same = TStacked().quant_ring_hops_leaves(TGossip(n_nodes=n),
+                                             [_t(xs[0])], 0)
+    np.testing.assert_array_equal(_np(same[0]), xs[0])
+
+
+def test_multi_hop_mix_quant_leaves_operand_checks():
+    q = torch.zeros(3, 5, dtype=torch.int8)
+    s = torch.ones(3, 1)
+    with pytest.raises(ValueError, match="hops"):
+        ops.multi_hop_mix_quant_leaves([q], [s], hops=0, w_self=WC,
+                                       w_side=WS)
+    with pytest.raises(ValueError, match="lists"):
+        ops.multi_hop_mix_quant_leaves([q, q], [s], hops=2, w_self=WC,
+                                       w_side=WS)
+    with pytest.raises(ValueError, match="lists"):
+        ops.multi_hop_mix_quant_leaves([], [], hops=2, w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="nodes in one call"):
+        ops.multi_hop_mix_quant_leaves(
+            [q, torch.zeros(4, 5, dtype=torch.int8)], [s, torch.ones(4, 1)],
+            hops=2, w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="one scale per node"):
+        ops.multi_hop_mix_quant_leaves([q, q], [s, torch.ones(2, 1)], hops=2,
+                                       w_self=WC, w_side=WS)
+
+
 # ---------------------------------------------------------------------------
 # Stiefel projection and fused retraction
 # ---------------------------------------------------------------------------
@@ -463,6 +547,62 @@ def test_flash_attention_ring_cache_positions():
                                         "float32")
     np.testing.assert_allclose(got, pallas, atol=2e-5)
     np.testing.assert_allclose(got, naive, atol=2e-5)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _flash_bf16_arithmetic(q, k, v, p_split: bool, block: int = 64):
+    """The CUDA kernel's bf16 tensor-core arithmetic on one causal head,
+    emulated on the CPU in fp32 (q, k, v hold bf16 values): exp2 of
+    scores in log2 units, the online softmax over key tiles of ``block``,
+    l summing the unrounded P.  ``p_split``: q raw with the scale on the
+    fp32 scores and P as bf16 high + residual (the kernel's); else the
+    scaled q and P each rounded once to bf16.  Returns the bf16 output."""
+    s_len, hd = q.shape
+    qs = hd ** -0.5 * 1.4426950408889634
+    scores = (q @ k.T) * qs if p_split else _bf16(q * qs) @ k.T
+    pos = torch.arange(s_len)
+    scores = scores.masked_fill(pos[None, :] > pos[:, None], -math.inf)
+    m = torch.full((s_len,), -1e30)
+    l = torch.zeros(s_len)
+    acc = torch.zeros(s_len, v.shape[1])
+    for t0 in range(0, s_len, block):
+        sc = scores[:, t0:t0 + block]
+        m_new = torch.maximum(m, sc.max(1).values)
+        corr = torch.exp2(m - m_new)
+        prob = torch.exp2(sc - m_new[:, None])
+        l = l * corr + prob.sum(1)
+        hi = _bf16(prob)
+        used = hi + _bf16(prob - hi) if p_split else hi
+        acc = acc * corr[:, None] + used @ v[t0:t0 + block]
+        m = m_new
+    return _bf16(acc / l[:, None])
+
+
+def test_bf16_flash_arithmetic_needs_the_p_split_for_large_outputs():
+    """With every output in [4, 8), one bf16 rounding of P (and of the
+    scaled q) puts the result past the 2e-2 gate against the reference's
+    fp32 arithmetic; q raw and P as high + residual keep it at the
+    output's own half ulp (2^-6).  The reason for the CUDA kernel's bf16
+    arithmetic; the kernel itself is held to this on the card
+    (test_torch_cuda.py)."""
+    rng = np.random.default_rng(0)
+    worst = {True: 0.0, False: 0.0}
+    for _ in range(3):
+        q = _bf16(torch.from_numpy(rng.normal(size=(256, 64)).astype(np.float32)))
+        k = _bf16(torch.from_numpy(rng.normal(size=(256, 64)).astype(np.float32)))
+        v = _bf16(torch.from_numpy(
+            (6.0 + 1.9 * rng.random((256, 64))).astype(np.float32)))
+        want = ref.blockwise_attention(q[None, :, None], k[None, :, None],
+                                       v[None, :, None])[0, :, 0]
+        assert 4.0 <= float(want.min()) and float(want.max()) < 8.0
+        for split in worst:
+            got = _flash_bf16_arithmetic(q, k, v, split)
+            worst[split] = max(worst[split],
+                               float((got - want).abs().max()))
+    assert worst[True] <= 2 ** -6 + 1e-4 < 2e-2 < worst[False]
 
 
 def test_flash_attention_rows_without_keys_are_zero():
