@@ -22,9 +22,16 @@
    main path calls them, one grouped call per mixed tree, and
    multi_hop_mix also on a 40-node ring (its shared-memory kernel); the
    registers and occupancy of its register kernel at n = 20 are printed.
-   fused_retract also at r = 99 and r = 256 (its clusters of 8 CTAs),
-   and multi_hop_mix_quant as the EF-int8 k = 67 step calls it: one grouped
-   call for each of the x, u and y trees.
+   stiefel_project as the step calls it, one grouped call for the fc1 and
+   head leaves (its on-chip route), and at stress shapes (the streaming
+   3xTF32 route at (20, 4096, 256) and (20, 4096, 99)); fused_retract at
+   the same shapes.  Every fp32 matrix product is bounded at the 3xTF32
+   rate (495 / 3 TFLOP/s), whichever unit the kernel uses.  quant_mix as the EF-int8 step calls
+   it: one grouped call for each of the x, u, y and v trees with the old
+   hats' exact hop fused in, beside the chain it replaces (ring_mix of the
+   hats, quant_mix per leaf, the adds: same bits, timed in the same run),
+   and without a base.  multi_hop_mix_quant as the EF-int8 k = 67 step
+   calls it: one grouped call for each of the x, u and y trees.
    A CUDA operand of another dtype must raise, not fall back.  The
    attention kernels in fp32 and bf16
    (gates 2e-5 and 2e-2 absolute, the JAX package's): flash_attention at
@@ -50,12 +57,15 @@
      for 5 steps, and the 5%-drop channel at k = 1 for 10 steps;
    losses finite, Stiefel residual <= 1e-4, every kernel of the path
    launched, and the ring mixes and the int8 kernels exactly as often as
-   the steps need (one grouped ring call per mixed tree, one grouped int8
-   tail call per tree).  Then a profile of a DRGDA k = 1 step, an EF-int8
-   k = 1 step, a DRGDA k = 67 step and an EF-int8 quant_hops="all" k = 67
-   step (wall time, device time and busy share, the kernels that take the
-   most), and small DRGDA runs on the card against the same runs on the
-   CPU (plain versions), full precision and EF-int8.
+   the steps need (one grouped ring call per mixed tree; for EF-int8 one
+   grouped first hop per tree and no ring_mix, one grouped int8 tail call
+   per tree).  Then a profile of a DRGDA k = 1 step, an EF-int8 k = 1
+   step, a DRGDA k = 67 step and an EF-int8 quant_hops="all" k = 67 step
+   (wall time, device time and busy share, the kernels that take the
+   most, and the port's launches a step: one stiefel_project launch, and
+   for EF-int8 four quant_mix and no ring_mix, asserted), and small DRGDA
+   runs on the card against the same runs on the CPU (plain versions),
+   full precision and EF-int8.
 5. Serving path: smollm-135m at its published widths (30 layers, fp32,
    random weights from a seed) through the paged engine
    (``repro_torch.serve``): 8 requests with ragged prompts of 24-256
@@ -81,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -121,7 +132,7 @@ KERNEL_META = {
 }
 # the path each kernel belongs to (its launches in the table come from it)
 FULL_PATH = ("stiefel_project", "fused_retract", "ring_mix", "multi_hop_mix")
-INT8_PATH = ("stiefel_project", "fused_retract", "ring_mix", "quant_mix",
+INT8_PATH = ("stiefel_project", "fused_retract", "quant_mix",
              "multi_hop_mix_quant")
 SERVE_PATH = ("flash_attention", "paged_decode")
 
@@ -196,20 +207,28 @@ def bound(flops: float, nbytes: float,
 
 
 def _stiefel_inputs(shape, gen, device):
+    """x on St(d, r) and an update direction, both contiguous as the
+    optimizer's leaves are (the QR factor comes out column-major)."""
     import torch
-    x = torch.linalg.qr(torch.randn(shape, generator=gen, device=device))[0]
+    x = torch.linalg.qr(torch.randn(shape, generator=gen,
+                                    device=device))[0].contiguous()
     # an update direction of the optimizer's size: alpha*[Wx]_i - beta*u
     g = 0.5 * x + 0.1 * torch.randn(shape, generator=gen, device=device)
     return x, g
 
 
 def _project_cost(shape):
+    """4 d r^2 flops a node (x^T g and x S) plus the subtraction, counted
+    at the 3xTF32 rate; x and g read and the result written once."""
     b = math.prod(shape[:-2])
     d, r = shape[-2:]
     return b * (4 * d * r * r + d * r), 3 * b * d * r * 4
 
 
 def _retract_cost(shape, ns_iters=20):
+    """The tall products (Grams and apply, 8 d r^2 flops a node) and the
+    (r, r) stage (6 + 6 ns_iters r^3), all at the 3xTF32 rate; x and g
+    read and the result written once."""
     b = math.prod(shape[:-2])
     d, r = shape[-2:]
     return (b * (8 * d * r * r + (6 + 6 * ns_iters) * r ** 3),
@@ -233,6 +252,15 @@ def _quant_cost(shape, hops):
             n * 1 + shape[0] * 4 + n * 4)
 
 
+def _fused_hop_cost(shape):
+    """The int8 hop (:func:`_quant_cost`) plus the exact hop of an fp32
+    base (4 operations, 4 bytes read an element) and the sum (1 operation
+    an element)."""
+    flops, nbytes = _quant_cost(shape, 1)
+    n = math.prod(shape)
+    return flops + 5 * n, nbytes + 4 * n
+
+
 def _flat(results) -> list:
     """The outputs of a list of calls, a grouped call's list spread out."""
     out = []
@@ -242,14 +270,17 @@ def _flat(results) -> list:
 
 
 def run_case(name, calls, plain_calls, gate, costs, label,
-             library_calls=None, peak=PEAK_FLOPS, lib_gate=1e-4):
+             library_calls=None, peak=PEAK_FLOPS, lib_gate=1e-4,
+             chain_calls=None):
     """calls/plain_calls/library_calls: lists of thunks over the same
     inputs, each returning one output or (a grouped call) a list of them,
     the same outputs in the same order in all three; library_calls, where
     given, are one PyTorch call each that computes the same function up to
     rounding, within ``lib_gate`` of the plain version relative to its
     largest value.  ``peak``: the card's operation rate for the inputs'
-    type."""
+    type.
+    ``chain_calls``, where given: the calls a fused kernel replaces, timed
+    beside it and held to the same gate."""
     import torch
     outs = _flat([c() for c in calls])
     torch.cuda.synchronize()
@@ -278,19 +309,32 @@ def run_case(name, calls, plain_calls, gate, costs, label,
         library_dev_ms = device_ms(lambda: [lc() for lc in library_calls])
         lib_txt = (f" library={library_ms:.4f} ms device={library_dev_ms:.4f}"
                    f" ms (err {lib_err:.1e})")
+    # a cost is (flops, bytes), the flops at ``peak``
     flops = sum(c[0] for c in costs)
     nbytes = sum(c[1] for c in costs)
     b_ms, b_by = bound(flops, nbytes, peak)
+    chain_ms, chain_dev_ms, chain_txt = None, None, ""
+    if chain_calls is not None:
+        chain = _flat([cc() for cc in chain_calls])
+        torch.cuda.synchronize()
+        if not gate(outs, chain, err, scale)[0]:
+            raise AssertionError(f"{name} {label}: differs from the chain "
+                                 f"it replaces")
+        chain_ms = time_ms(lambda: [cc() for cc in chain_calls])
+        chain_dev_ms = device_ms(lambda: [cc() for cc in chain_calls])
+        chain_txt = (f" chain={chain_ms:.4f} ms device={chain_dev_ms:.4f} ms "
+                     f"(equal)")
     log(f"  {name:16s} {label:34s} max_abs_err={err:.3e} "
         f"({gate_txt}) kernel={ms:.4f} ms device={dev_ms:.4f} ms "
         f"plain={plain_ms:.4f} ms"
-        f"{lib_txt} bound={b_ms:.5f} ms ({b_by})")
+        f"{lib_txt}{chain_txt} bound={b_ms:.5f} ms ({b_by})")
     if not ok:
         raise AssertionError(f"{name} {label}: outside its gate "
                              f"({gate_txt}), max_abs_err={err:.3e}")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "library_device_ms": library_dev_ms}
+            "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "chain_ms": chain_ms, "chain_device_ms": chain_dev_ms}
 
 
 def bitwise(outs, want, err, scale):
@@ -320,23 +364,42 @@ def kernel_phase(device="cuda") -> dict:
     ws = (1.0 - wc) / 2.0
     rows = {}
 
-    # -- stiefel_project and fused_retract ---------------------------------
-    for name, op, plain, gate, cost in (
-            ("stiefel_project", ops.stiefel_project, ref.stiefel_project_ref,
-             relative(1e-5), _project_cost),
-            ("fused_retract", ops.fused_retract, ref.fused_retract_ref,
-             absolute(5e-5), _retract_cost)):
-        pairs = [_stiefel_inputs(s, gen, device) for s in STIEFEL_LEAVES]
-        rows[name] = run_case(
-            name, [lambda a=a, b=b: op(a, b) for a, b in pairs],
-            [lambda a=a, b=b: plain(a, b) for a, b in pairs], gate,
-            [cost(s) for s in STIEFEL_LEAVES],
-            "main step (20,784,64)+(20,64,3)")
-        for shape in ((N_NODES, 4096, 256), (N_NODES, 4096, 99),
-                      (N_NODES, 1000, 37)):
-            a, b = _stiefel_inputs(shape, gen, device)
-            run_case(name, [lambda: op(a, b)], [lambda: plain(a, b)], gate,
-                     [cost(shape)], f"stress {shape}")
+    # -- stiefel_project: the main step's two Stiefel leaves in one grouped
+    # call (the on-chip route), then the stress shapes one leaf a call
+    # ((20, 1000, 37) on chip; the other two stream through the 3xTF32
+    # tensor-core Gram and apply, bounded at that rate)
+    from repro_torch.kernels import stiefel_project as _sp
+    pairs = [_stiefel_inputs(s, gen, device) for s in STIEFEL_LEAVES]
+    rows["stiefel_project"] = run_case(
+        "stiefel_project",
+        [lambda: ops.stiefel_project_leaves([a for a, _ in pairs],
+                                            [b for _, b in pairs])],
+        [lambda a=a, b=b: ref.stiefel_project_ref(a, b) for a, b in pairs],
+        relative(1e-5), [_project_cost(s) for s in STIEFEL_LEAVES],
+        "main step (20,784,64)+(20,64,3), 1 call", peak=PEAK_FLOPS_TF32X3)
+    for shape in ((N_NODES, 4096, 256), (N_NODES, 4096, 99),
+                  (N_NODES, 1000, 37)):
+        a, b = _stiefel_inputs(shape, gen, device)
+        ctas = _sp.cluster_size(*shape[1:])
+        route = f"on chip, {ctas} CTAs" if ctas else "streaming"
+        run_case("stiefel_project", [lambda: ops.stiefel_project(a, b)],
+                 [lambda: ref.stiefel_project_ref(a, b)], relative(1e-5),
+                 [_project_cost(shape)], f"stress {shape} [{route}]",
+                 peak=PEAK_FLOPS_TF32X3)
+    # -- fused_retract: its Gram and apply are the same tensor-core products
+    rows["fused_retract"] = run_case(
+        "fused_retract",
+        [lambda a=a, b=b: ops.fused_retract(a, b) for a, b in pairs],
+        [lambda a=a, b=b: ref.fused_retract_ref(a, b) for a, b in pairs],
+        absolute(5e-5), [_retract_cost(s) for s in STIEFEL_LEAVES],
+        "main step (20,784,64)+(20,64,3)", peak=PEAK_FLOPS_TF32X3)
+    for shape in ((N_NODES, 4096, 256), (N_NODES, 4096, 99),
+                  (N_NODES, 1000, 37)):
+        a, b = _stiefel_inputs(shape, gen, device)
+        run_case("fused_retract", [lambda: ops.fused_retract(a, b)],
+                 [lambda: ref.fused_retract_ref(a, b)], absolute(5e-5),
+                 [_retract_cost(shape)], f"stress {shape}",
+                 peak=PEAK_FLOPS_TF32X3)
 
     # -- the library call of the ring mixes: W^k x as one fp32 GEMM per
     # leaf, with W^k taken in float64 and cast, as the dense mix path does
@@ -443,17 +506,50 @@ def kernel_phase(device="cuda") -> dict:
             ref.ring_panel(q, k), ref.ring_panel(s, k), hops=k, w_self=wc,
             w_side=ws)[k:k + N_NODES]
 
-    # quant_mix: one EF-int8 step mixes x, u (4 leaves each), y and v
-    leaves = X_LEAVES * 2 + [Y_LEAF] * 2
-    qs = [payload(torch.randn(s, generator=gen, device=device))
-          for s in leaves]
+    # quant_mix: the first hop of one EF-int8 step, one grouped call for
+    # each of the trees x, u (4 leaves each), y and v, with the old public
+    # copies' exact hop fused in; beside the chain it replaces (ring_mix of
+    # the 4 hat trees, quant_mix of the 10 leaves, 10 adds)
+    tree_shapes = [X_LEAVES, X_LEAVES, [Y_LEAF], [Y_LEAF]]
+    qtrees = [[payload(torch.randn(s, generator=gen, device=device))
+               for s in tree] for tree in tree_shapes]
+    hats = [[torch.randn((N_NODES, q.shape[1]), generator=gen, device=device)
+             for q, _ in tree] for tree in qtrees]
+
+    def fused(tree, base):
+        return ops.quant_mix_leaves([q for q, _ in tree], [s for _, s in tree],
+                                    base=base, w_self=wc, w_side=ws)
+
+    def chain(tree, base):
+        mixed = ops.ring_mix_leaves(base, w_self=wc, w_side=ws)
+        return [m + ops.quant_mix(q, s, w_self=wc, w_side=ws)
+                for m, (q, s) in zip(mixed, tree)]
+
+    def fused_plain(q, s, h):
+        return ref.ring_mix_ref(h, h.roll(1, 0), h.roll(-1, 0), wc, ws) \
+            + quant_plain(q, s)
+
     rows["quant_mix"] = run_case(
         "quant_mix",
-        [lambda q=q, s=s: ops.quant_mix(q, s, w_self=wc, w_side=ws)
-         for q, s in qs],
-        [lambda q=q, s=s: quant_plain(q, s) for q, s in qs], bitwise,
-        [_quant_cost(s, 1) for s in leaves], "main step 10 leaves")
+        [lambda t=t, h=h: fused(t, h) for t, h in zip(qtrees, hats)],
+        [lambda q=q, s=s, h=h: fused_plain(q, s, h)
+         for t, hs in zip(qtrees, hats) for (q, s), h in zip(t, hs)],
+        bitwise, [_fused_hop_cost(q.shape) for t in qtrees for q, _ in t],
+        "main step 4 calls + hats, 10 leaves",
+        chain_calls=[lambda t=t, h=h: chain(t, h)
+                     for t, h in zip(qtrees, hats)])
+    run_case("quant_mix",
+             [lambda t=t: fused(t, None) for t in qtrees],
+             [lambda q=q, s=s: quant_plain(q, s) for t in qtrees
+              for q, s in t], bitwise,
+             [_quant_cost(q.shape, 1) for t in qtrees for q, _ in t],
+             "main step 4 calls, no base")
     qbig, sbig = payload(big)
+    hbig = torch.randn(big.shape, generator=gen, device=device)
+    run_case("quant_mix", [lambda: fused([(qbig, sbig)], [hbig])],
+             [lambda: fused_plain(qbig, sbig, hbig)], bitwise,
+             [_fused_hop_cost(big.shape)], "stress (20, 1M) + hat",
+             chain_calls=[lambda: chain([(qbig, sbig)], [hbig])])
     run_case("quant_mix", [lambda: ops.quant_mix(qbig, sbig, w_self=wc,
                                                  w_side=ws)],
              [lambda: quant_plain(qbig, sbig)], bitwise,
@@ -498,6 +594,11 @@ def kernel_phase(device="cuda") -> dict:
     # -- a CUDA operand the kernel does not take raises --------------------
     for call in (lambda: ops.ring_mix(big.double(), w_self=wc, w_side=ws),
                  lambda: ops.fused_retract(*(t.double() for t in pairs[0])),
+                 lambda: ops.stiefel_project_leaves(
+                     [t.double() for t, _ in pairs], [t for _, t in pairs]),
+                 lambda: ops.quant_mix_leaves([qbig], [sbig],
+                                              base=[hbig.double()],
+                                              w_self=wc, w_side=ws),
                  lambda: ops.quant_mix(qbig.float(), sbig, w_self=wc,
                                        w_side=ws),
                  lambda: ops.multi_hop_mix_quant(qbig, sbig.double(), hops=3,
@@ -577,16 +678,16 @@ def main_path_phase() -> dict:
          {"ring_mix": 1, "multi_hop_mix": 3})), FULL_PATH)
     int8 = COMM_PRESETS["int8_ef"]
     int8_all = dataclasses.replace(int8, quant_hops="all")
-    # per step: one compressed first hop for each of the 10 leaves of x, y,
-    # u and v, and one grouped error-feedback hop of each of the 4 hats;
-    # under quant_hops="all" at k > 1 one grouped tail launch for each of
-    # the trees x, y and u (v mixes with one hop).  The drop channel mixes
-    # by einsum.
+    # per step: one grouped compressed first hop for each of the trees x,
+    # y, u and v, with the error-feedback hop of its old hats fused in (no
+    # ring_mix); under quant_hops="all" at k > 1 one grouped tail launch
+    # for each of the trees x, y and u (v mixes with one hop).  The drop
+    # channel mixes by einsum.
     ef = _run_path("int8", (
-        ("drgda", 30, True, 1, int8, {"quant_mix": 10, "ring_mix": 4,
+        ("drgda", 30, True, 1, int8, {"quant_mix": 4, "ring_mix": 0,
                                       "multi_hop_mix_quant": 0}),
         ("drgda", 5, True, K_THEOREM1, int8_all,
-         {"quant_mix": 10, "ring_mix": 4, "multi_hop_mix_quant": 3,
+         {"quant_mix": 4, "ring_mix": 0, "multi_hop_mix_quant": 3,
           "multi_hop_mix": 0}),
         ("drgda", 10, True, 1, COMM_PRESETS["int8_ef_drop5"],
          {"quant_mix": 0, "ring_mix": 0, "multi_hop_mix_quant": 0})),
@@ -595,12 +696,33 @@ def main_path_phase() -> dict:
             for name in KERNEL_META if name not in SERVE_PATH}
 
 
-OWN_KERNELS = ("gram_partial_kernel", "sym_reduce_kernel", "apply_kernel",
-               "finalize_small_kernel", "finalize_full_kernel",
-               "finalize_cluster_kernel",
-               "ring_mix_group_kernel", "ring_hops_reg_kernel",
-               "ring_hops_smem_kernel", "quant_mix_kernel",
-               "quant_hops_reg_kernel", "quant_hops_kernel")
+def own_kernels() -> re.Pattern:
+    """A pattern that finds, in a profiler event's name, any ``__global__``
+    function of the port's CUDA sources: every kernel the port can launch,
+    whatever its name."""
+    names = set()
+    for src in sorted((SRC / "repro_torch/kernels/csrc").glob("*.cu*")):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+            src.read_text()))
+    if not names:
+        raise RuntimeError("no __global__ function in the port's sources")
+    return re.compile(r"(?<!\w)(?:" + "|".join(sorted(names)) + r")(?=[<(])")
+
+
+# launches of one optimizer step (no evaluation) in the profile phase: the
+# step's Stiefel leaves projected by one grouped call (the on-chip route),
+# and for EF-int8 one grouped first hop per tree with no ring_mix of the
+# hats
+STEP_LAUNCHES = {
+    "full k=1": {"stiefel_project": 1, "fused_retract": 2, "ring_mix": 4},
+    "EF-int8 k=1": {"stiefel_project": 1, "fused_retract": 2,
+                    "quant_mix": 4, "ring_mix": 0},
+    f"full k={K_THEOREM1}": {"stiefel_project": 1, "ring_mix": 1,
+                             "multi_hop_mix": 3},
+    f"EF-int8 all k={K_THEOREM1}": {"stiefel_project": 1, "quant_mix": 4,
+                                    "ring_mix": 0, "multi_hop_mix_quant": 3},
+}
 
 
 def profile_phase(comms: dict, steps: int = 10) -> None:
@@ -617,8 +739,10 @@ def profile_phase(comms: dict, steps: int = 10) -> None:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.launch.fair import prepare
 
+    own = own_kernels()
     runs, states = {}, {}
     for label, (comm, k) in comms.items():
         runs[label] = prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
@@ -642,11 +766,18 @@ def profile_phase(comms: dict, steps: int = 10) -> None:
 
     before = walls()
     for label, run in runs.items():
+        ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 states[label], _ = run.opt.step(states[label], run.full)
             torch.cuda.synchronize()
+        per_step = {n: c / steps for n, c in ops.launch_counts().items()
+                    if c}
+        want = STEP_LAUNCHES.get(label, {})
+        if any(per_step.get(n, 0) != c for n, c in want.items()):
+            raise AssertionError(f"{label} step: launches {per_step}, want "
+                                 f"{want}")
         # device-side events only: a CPU op's self device time repeats the
         # time of the kernels it launched
         kernels = [(e.self_device_time_total / steps, e.count / steps, e.key)
@@ -655,8 +786,7 @@ def profile_phase(comms: dict, steps: int = 10) -> None:
         kernels.sort(reverse=True)
         device_us = sum(k[0] for k in kernels)
         launches = sum(k[1] for k in kernels)
-        own_us = sum(k[0] for k in kernels
-                     if any(name in k[2] for name in OWN_KERNELS))
+        own_us = sum(k[0] for k in kernels if own.search(k[2]))
         step_us = before[label]
         wall_us = statistics.median(step_us)
         log(f"  {label} drgda step: {wall_us:.1f} us wall without the "
@@ -664,7 +794,8 @@ def profile_phase(comms: dict, steps: int = 10) -> None:
             f"{min(step_us):.1f}, max {max(step_us):.1f}); "
             f"{device_us:.1f} us of device time in {launches:.0f} kernels "
             f"(device busy {100 * device_us / wall_us:.1f}% of the wall); "
-            f"the port's CUDA kernels {own_us:.1f} us")
+            f"the port's CUDA kernels {own_us:.1f} us; the port's launches "
+            f"a step {per_step}")
         for us, count, key in kernels[:12]:
             log(f"    {us:9.1f} us/step  x{count:4.0f}  {key[:100]}")
     after = walls()
@@ -1283,7 +1414,9 @@ def main() -> int:
                       "bound_by": row["bound_by"],
                       "library_ms": row["library_ms"],
                       "device_ms": row["device_ms"],
-                      "library_device_ms": row["library_device_ms"]})
+                      "library_device_ms": row["library_device_ms"],
+                      "chain_ms": row["chain_ms"],
+                      "chain_device_ms": row["chain_device_ms"]})
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ the card, the plain version on the CPU):
   * ``mix`` with ``steps == 1``       -> one ``ring_mix`` launch per tree;
   * ``mix`` with ``steps > 1``        -> one ``multi_hop_mix`` launch per
     tree (per 16 leaves of it);
-  * ``quant_ring_hop`` (int8 payload) -> one ``quant_mix`` launch;
+  * ``quant_ring_hop_leaves`` (the int8 payloads of a tree, with the
+    exact hop of the old public copies fused in) -> one ``quant_mix``
+    launch per tree (per 16 leaves); ``quant_ring_hop`` is its one-leaf
+    case;
   * ``quant_ring_hops_leaves`` (all-hop int8 of a tree) ->
     ``quantize_det`` per leaf, then one ``multi_hop_mix_quant`` launch for
     every hop of every leaf (per 16 leaves); ``quant_ring_hops`` is its
@@ -95,13 +98,29 @@ class StackedBackend:
         ChannelModel` (link drops / stragglers / schedules)."""
         return channel.mix(tree, rnd, key, steps=steps)
 
+    def quant_ring_hop_leaves(self, spec, qs: list[torch.Tensor],
+                              scales: list[torch.Tensor],
+                              base: list[torch.Tensor] | None = None
+                              ) -> list[torch.Tensor]:
+        """Fused compressed ring hop of each int8 payload of ``qs`` (n, F)
+        with its per-node scales (n, 1): ``wc*dq(q_i) + ws*(dq(q_{i-1}) +
+        dq(q_{i+1}))``, fp32; with ``base`` (the old public copies, one fp32
+        leaf of the payload's size each) the exact hop of the base is added:
+        ``mix_hop(base) + that``, the first hop of error feedback.  One
+        grouped ``quant_mix`` call for the tree (one launch per 16 leaves);
+        a ring of n <= 2 keeps ``mix_hop``'s own expression for the base."""
+        wc, ws = _weights(spec)
+        if base is None or spec.n_nodes > 2:
+            return ops.quant_mix_leaves(qs, scales, base=base, w_self=wc,
+                                        w_side=ws)
+        mixed = self.mix_hop(spec, list(base))
+        return [m.reshape(w.shape) + w for m, w in zip(
+            mixed, ops.quant_mix_leaves(qs, scales, w_self=wc, w_side=ws))]
+
     def quant_ring_hop(self, spec, q: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
-        """Fused compressed ring hop on an int8 payload ``q`` (n, F) with
-        per-node scales (n, 1): ``wc*dq(q_i) + ws*(dq(q_{i-1}) +
-        dq(q_{i+1}))``, fp32."""
-        wc, ws = _weights(spec)
-        return ops.quant_mix(q, scale, w_self=wc, w_side=ws)
+        """:meth:`quant_ring_hop_leaves` of one leaf, without a base."""
+        return self.quant_ring_hop_leaves(spec, [q], [scale])[0]
 
     def quant_ring_hops_leaves(self, spec, xs: list[torch.Tensor],
                                steps: int) -> list[torch.Tensor]:

@@ -14,8 +14,10 @@ The hop runs through :class:`~repro_torch.comms.channel.ChannelModel`
 (drops / stragglers / schedules); a trivial channel takes the exact ring
 path.  For int8 payloads on a clean ring the first hop is the fused
 ``quant_mix`` kernel: ``W(hat + dq(q)) = W hat + [dequantize + 3-way
-combine of the int8 wire buffers]``; under ``quant_hops="all"`` the k - 1
-tail hops of a slot's tree are one grouped ``multi_hop_mix_quant`` launch.
+combine of the int8 wire buffers]``, the exact hop of the old hats and the
+int8 hop of a slot's tree in one grouped launch; under ``quant_hops="all"``
+the k - 1 tail hops of the tree are one grouped ``multi_hop_mix_quant``
+launch.
 
 Randomness comes from the engine's draw source (``comms.compress``): the
 round's keys are ``(slot, rnd)`` for quantization and ``(slot/chan, rnd)``
@@ -181,20 +183,17 @@ class CommEngine:
                      k_chan: DrawKey):
         if wire is not None and self._use_fused_hop():
             qs, scales = wire
-            base = self.backend.mix_hop(self.gossip, hat_old) \
-                if self.comm.error_feedback else None
-
-            def hop(q, scale, like):
-                n = q.shape[0]
-                out = self.backend.quant_ring_hop(
-                    self.gossip, q.reshape(n, -1), scale.reshape(n, 1))
-                return out.reshape(like.shape).to(like.dtype)
-
             leaves_old, unflatten = tree_flatten(hat_old)
-            wire_mix = unflatten([hop(q, sc, leaf) for q, sc, leaf
-                                  in zip(qs, scales, leaves_old)])
-            first = (tree_map(lambda b, w: b + w, base, wire_mix)
-                     if base is not None else wire_mix)
+            n = leaves_old[0].shape[0]
+            base = ([h.reshape(n, -1) for h in leaves_old]
+                    if self.comm.error_feedback else None)
+            # W hat_old + [dequantize + 3-way combine of the wire], one
+            # grouped call for the tree
+            outs = self.backend.quant_ring_hop_leaves(
+                self.gossip, [q.reshape(n, -1) for q in qs],
+                [sc.reshape(n, 1) for sc in scales], base)
+            first = unflatten([o.reshape(like.shape).to(like.dtype)
+                               for o, like in zip(outs, leaves_old)])
             if s <= 1:
                 return first
             if self.comm.quant_hops == "all":

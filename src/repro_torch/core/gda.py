@@ -41,7 +41,7 @@ from repro_torch.comms.layer import (CommState, make_mixer, maybe_engine,
                                      maybe_init_state)
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.core.minimax import MinimaxProblem
-from repro_torch.geometry import check_retraction_name
+from repro_torch.geometry import check_retraction_name, tangent_project_tree
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -176,11 +176,11 @@ OPTIMIZERS = {"drgda": DRGDA, "drsgda": DRSGDA}
 
 def _vmapped_loss_and_rgrads(problem: MinimaxProblem, x: dict, y: Tensor,
                              batch: Any) -> tuple[Tensor, dict, Tensor]:
-    """Per-node loss, Riemannian grad_x and grad_y of node-stacked inputs."""
+    """Per-node loss, Riemannian grad_x and grad_y of node-stacked inputs;
+    the Stiefel leaves are projected by one grouped call."""
     (gx, gy), loss = vmap(grad_and_value(problem.loss_fn, argnums=(0, 1)))(
         x, y, batch)
-    rgx = tree_map(lambda m, xl, gl: m.tangent_project(xl, gl),
-                   problem.manifold_map, x, gx)
+    rgx = tangent_project_tree(problem.manifold_map, x, gx)
     return loss, rgx, gy
 
 

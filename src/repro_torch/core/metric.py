@@ -17,6 +17,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch.core.minimax import MinimaxProblem
+from repro_torch.geometry import tangent_project_tree
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -35,8 +36,7 @@ def global_riemannian_grad(problem: MinimaxProblem, x_hat: dict,
     ``batches`` is node-stacked local data; the params are shared."""
     gx = vmap(lambda b: problem.grads(x_hat, y_bar, b)[0])(batches)
     gx_mean = tree_map(lambda g: g.mean(0), gx)
-    return tree_map(lambda m, xl, gl: m.tangent_project(xl, gl),
-                    problem.manifold_map, x_hat, gx_mean)
+    return tangent_project_tree(problem.manifold_map, x_hat, gx_mean)
 
 
 @torch.no_grad()

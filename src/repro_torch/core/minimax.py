@@ -22,8 +22,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.func import grad
 
-from repro_torch.geometry import as_manifold_map
-from repro_torch.tree import tree_map
+from repro_torch.geometry import as_manifold_map, tangent_project_tree
 
 Tensor = torch.Tensor
 
@@ -61,10 +60,10 @@ class MinimaxProblem:
 
     def rgrads(self, x: dict, y: Tensor, batch: Any) -> tuple[dict, Tensor]:
         """(Riemannian grad_x, euclidean grad_y): constrained leaves are
-        tangent-projected at their own base point."""
+        tangent-projected at their own base point, the leaves of one
+        geometry in one call."""
         gx, gy = self.grads(x, y, batch)
-        rgx = tree_map(lambda m, xi, gi: m.tangent_project(xi, gi),
-                       self.manifold_map, x, gx)
+        rgx = tangent_project_tree(self.manifold_map, x, gx)
         return rgx, gy
 
     def value(self, x: dict, y: Tensor, batch: Any) -> Tensor:

@@ -5,7 +5,8 @@ whose *last two* dims are the matrix dims (d, r); leading dims (the node
 axis) broadcast:
 
   * ``tangent_project(x, g)``: orthogonal projection of ambient ``g`` onto
-    T_x M;
+    T_x M (``tangent_project_leaves`` for a list of leaves, and
+    :func:`tangent_project_tree` for a whole tree: one call per geometry);
   * ``retract(x, u, kind=..., **kw)``: map a tangent step back onto M;
   * ``project(a)``: nearest point of M;
   * ``consensus_mean(xs)``: induced arithmetic mean over the leading node
@@ -24,7 +25,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map
 
 Tensor = torch.Tensor
 Tree = Any
@@ -47,6 +48,12 @@ class Manifold:
     # -- protocol ----------------------------------------------------------
     def tangent_project(self, x: Tensor, g: Tensor) -> Tensor:
         raise NotImplementedError
+
+    def tangent_project_leaves(self, xs: list[Tensor],
+                               gs: list[Tensor]) -> list[Tensor]:
+        """:meth:`tangent_project` of each pair of leaves; a geometry with
+        a grouped kernel overrides it."""
+        return [self.tangent_project(x, g) for x, g in zip(xs, gs)]
 
     def retract(self, x: Tensor, u: Tensor, kind: Optional[str] = None,
                 **kw) -> Tensor:
@@ -158,3 +165,22 @@ def as_manifold_map(spec_tree: Tree) -> Tree:
     instances) to Manifold instances."""
     return tree_map(_as_manifold, spec_tree,
                     is_leaf=lambda s: isinstance(s, Manifold))
+
+
+def tangent_project_tree(manifold_map: Tree, x: Tree, g: Tree) -> Tree:
+    """Each leaf of ``g`` projected onto the tangent space at its leaf of
+    ``x`` by its geometry in ``manifold_map``; the leaves of one geometry go
+    through ONE ``tangent_project_leaves`` call (on the card, one kernel
+    launch for every Stiefel leaf of the tree)."""
+    ms, _ = tree_flatten(manifold_map)
+    xs, unflatten = tree_flatten(x)
+    gs, _ = tree_flatten(g)
+    groups: dict[Manifold, list[int]] = {}
+    for j, m in enumerate(ms):
+        groups.setdefault(m, []).append(j)
+    out: list = [None] * len(xs)
+    for m, idx in groups.items():
+        for j, o in zip(idx, m.tangent_project_leaves([xs[j] for j in idx],
+                                                      [gs[j] for j in idx])):
+            out[j] = o
+    return unflatten(out)

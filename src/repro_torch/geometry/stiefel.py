@@ -3,7 +3,9 @@
 Mirrors ``src/repro/geometry/stiefel.py``:
 
   * tangent projection  P_{T_x}(g) = g - x sym(x^T g)  (Eq. 3), through
-    ``ops.stiefel_project`` (the CUDA kernel on the card);
+    ``ops.stiefel_project`` (the CUDA kernel on the card), and for all the
+    Stiefel leaves of a tree at once ``ops.stiefel_project_leaves`` (one
+    launch);
   * polar retraction    R_x(u) = (x + u)(I_r + u^T u)^{-1/2}  (Lemma 1), with
     the inverse square root by Newton--Schulz or eigh;
   * ``polar_fused``: projection + polar retraction of an AMBIENT direction
@@ -100,6 +102,10 @@ class Stiefel(Manifold):
 
     def tangent_project(self, x: Tensor, g: Tensor) -> Tensor:
         return tangent_project(x, g)
+
+    def tangent_project_leaves(self, xs: list[Tensor],
+                               gs: list[Tensor]) -> list[Tensor]:
+        return ops.stiefel_project_leaves(xs, gs)
 
     def retract(self, x: Tensor, u: Tensor, kind: Optional[str] = None,
                 *, method: str = "ns", **kw) -> Tensor:

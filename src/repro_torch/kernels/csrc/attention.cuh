@@ -14,6 +14,7 @@
 #include <initializer_list>
 
 #include "common.cuh"
+#include "tensorcore.cuh"
 
 namespace attn {
 
@@ -55,21 +56,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// 16 bytes from global to shared memory without passing through registers;
-// with ``fill`` false the 16 bytes are zeros and src is not read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(fill ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// 16-byte cp.async staging (tensorcore.cuh)
+using tcore::cp_async16;
+using tcore::cp_async_commit;
+using tcore::cp_async_wait;
 
 // True when every pointer is 16-byte aligned: rows may then move with
 // cp_async16 (their byte widths are checked by the callers).

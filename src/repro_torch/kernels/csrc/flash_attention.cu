@@ -316,35 +316,10 @@ constexpr int kMaxWarps = 4;
 constexpr int kSms = 132;  // H100 SXM
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = hi + lo to about 2^-22 relative, both TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// c += a * b in fp32 accuracy: three TF32 products, small terms first
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ah,
-                                           const uint32_t* al, float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
+// 3xTF32 products (tensorcore.cuh)
+using tcore::mma_3xtf32;
+using tcore::split;
+
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(

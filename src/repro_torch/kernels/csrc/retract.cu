@@ -18,8 +18,9 @@
 // node, each too small to fill an SM, so latency bounds the stage.
 //
 // Design: three launches instead of the TPU's one.
-//   1. gram_partial_kernel<TWO> (tall.cuh): B and C partials over d chunks.
-//   2. The (r, r) stage, from the partials to M1 and M2:
+//   1. The Grams B and C: gram_kernel<kGramTwo> (tall.cuh) on the tensor
+//      cores as 3xTF32, the d reduction added inside a cluster per tile.
+//   2. The (r, r) stage, from B and C to M1 and M2:
 //      * r <= kSmallR (32; the head leaf has r = 3): finalize_small_kernel,
 //        one block per node, one thread per matrix element, the six (r, r)
 //        matrices in shared memory (a single warp at r <= 5).
@@ -45,8 +46,9 @@
 //      Products are register-tiled fp32 FMA (TR x TC outputs a thread,
 //      compile-time bounds, float4 shared-memory loads, no bounds checks:
 //      the padding is zeros), summed over k in one fixed order per CTA.
-//   3. apply_kernel<kApplyRetract> (tall.cuh): out = x M1 + g M2.
-// fp32 FMA on CUDA cores throughout, no TF32 (TF32 breaks the 5e-5 gate).
+//   3. out = x M1 + g M2: apply_kernel<kApplyRetract> (tall.cuh, 3xTF32).
+// The (r, r) stage is fp32 FMA on CUDA cores; the tall products are 3xTF32,
+// fp32-accurate: plain TF32 breaks the 5e-5 gate.
 #include <cooperative_groups.h>
 
 #include "tall.cuh"
@@ -74,8 +76,7 @@ __device__ __forceinline__ float small_mm(const float* a, const float* b,
 __global__ void __launch_bounds__(1024)
 finalize_small_kernel(const float* __restrict__ pb,
                       const float* __restrict__ pc, float* __restrict__ m1,
-                      float* __restrict__ m2, int r, int n_chunks,
-                      int ns_iters) {
+                      float* __restrict__ m2, int r, int ns_iters) {
   extern __shared__ float sm[];
   __shared__ float red;
   const int b = blockIdx.x, e = threadIdx.x, rr = r * r;
@@ -90,17 +91,11 @@ finalize_small_kernel(const float* __restrict__ pb,
   float* v = sm + 5 * rr;   // Z_new
 
   if (live) {
-    const float* pbb = pb + (size_t)b * n_chunks * rr;
-    const float* pcb = pc + (size_t)b * n_chunks * rr;
-    float sb = 0.f, sbt = 0.f, sc = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      sb += pbb[c * rr + e];
-      sbt += pbb[c * rr + j * r + i];
-      sc += pcb[c * rr + e];
-    }
-    s[e] = 0.5f * (sb + sbt);
+    const float* pbb = pb + (size_t)b * rr;
+    const float sbt = pbb[j * r + i];
+    s[e] = 0.5f * (pbb[e] + sbt);
     bt[e] = sbt;
-    a[e] = sc;
+    a[e] = pc[(size_t)b * rr + e];
   }
   __syncthreads();
   if (live) {
@@ -349,8 +344,7 @@ template <class C>
 __global__ void __launch_bounds__(C::kThreads, 1)
 finalize_full_kernel(const float* __restrict__ pb,
                      const float* __restrict__ pc, float* __restrict__ m1,
-                     float* __restrict__ m2, int r, int n_chunks,
-                     int ns_iters) {
+                     float* __restrict__ m2, int r, int ns_iters) {
   static_assert(C::kFull, "whole copies");
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -371,25 +365,19 @@ finalize_full_kernel(const float* __restrict__ pb,
   float acc[C::TR][C::TC];
   cluster.sync();   // every CTA has started: its shared memory may be written
 
-  // own rows of B (to every CTA) and of C, the chunks added in a fixed
-  // order; zeros in the padding
+  // own rows of B (to every CTA) and of C; zeros in the padding
   {
-    const float* pbb = pb + (size_t)b * n_chunks * rr;
-    const float* pcb = pc + (size_t)b * n_chunks * rr;
+    const float* pbb = pb + (size_t)b * rr;
+    const float* pcb = pc + (size_t)b * rr;
     for (int e4 = tid; e4 < C::kPanel / 4; e4 += C::kThreads) {
       const int il = 4 * e4 / RP, j0 = 4 * e4 % RP, i = row0 + il;
       float vb[4], vc[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int j = j0 + q;
-        float sb = 0.f, sc = 0.f;
-        if (i < r && j < r)
-          for (int c = 0; c < n_chunks; ++c) {
-            sb += pbb[c * rr + (size_t)i * r + j];
-            sc += pcb[c * rr + (size_t)i * r + j];
-          }
-        vb[q] = sb;
-        vc[q] = sc;
+        const bool in = i < r && j < r;
+        vb[q] = in ? pbb[(size_t)i * r + j] : 0.f;
+        vc[q] = in ? pcb[(size_t)i * r + j] : 0.f;
       }
       put<C>(cluster, zn, row0, il, j0, make_float4(vb[0], vb[1], vb[2], vb[3]));
       *reinterpret_cast<float4*>(y + i * RP + j0) =
@@ -500,8 +488,7 @@ template <class C>
 __global__ void __launch_bounds__(C::kThreads, 1)
 finalize_cluster_kernel(const float* __restrict__ pb,
                         const float* __restrict__ pc, float* __restrict__ m1,
-                        float* __restrict__ m2, int r, int n_chunks,
-                        int ns_iters) {
+                        float* __restrict__ m2, int r, int ns_iters) {
   static_assert(!C::kFull, "row panels");
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -522,21 +509,15 @@ finalize_cluster_kernel(const float* __restrict__ pb,
   const size_t rr = (size_t)r * r;
   float acc[C::TR][C::TC];
 
-  // own rows of B (-> zn) and C (-> y), the chunks added in a fixed order;
-  // zeros in the padding
+  // own rows of B (-> zn) and C (-> y); zeros in the padding
   {
-    const float* pbb = pb + (size_t)b * n_chunks * rr;
-    const float* pcb = pc + (size_t)b * n_chunks * rr;
+    const float* pbb = pb + (size_t)b * rr;
+    const float* pcb = pc + (size_t)b * rr;
     for (int e = tid; e < kPanel; e += C::kThreads) {
       const int i = row0 + e / RP, j = e % RP;
-      float sb = 0.f, sc = 0.f;
-      if (i < r && j < r)
-        for (int c = 0; c < n_chunks; ++c) {
-          sb += pbb[c * rr + (size_t)i * r + j];
-          sc += pcb[c * rr + (size_t)i * r + j];
-        }
-      zn[e] = sb;
-      y[e] = sc;
+      const bool in = i < r && j < r;
+      zn[e] = in ? pbb[(size_t)i * r + j] : 0.f;
+      y[e] = in ? pcb[(size_t)i * r + j] : 0.f;
     }
   }
   cluster.sync();
@@ -637,7 +618,7 @@ finalize_cluster_kernel(const float* __restrict__ pb,
 
 template <class C, class K>
 int launch_cluster(K kernel, const float* pb, const float* pc, float* m1,
-                   float* m2, int batch, int r, int n_chunks, int ns_iters,
+                   float* m2, int batch, int r, int ns_iters,
                    cudaStream_t st) {
   static bool smem_set = false;
   if (!smem_set) {
@@ -658,27 +639,25 @@ int launch_cluster(K kernel, const float* pb, const float* pc, float* m1,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, pb, pc, m1, m2, r, n_chunks,
-                                 ns_iters);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, pb, pc, m1, m2, r, ns_iters);
 }
 
 int launch_finalize(const float* pb, const float* pc, float* m1, float* m2,
-                    int batch, int r, int n_chunks, int ns_iters,
-                    cudaStream_t st) {
+                    int batch, int r, int ns_iters, cudaStream_t st) {
   if (r <= kSmallR) {
     const int threads = (r * r + 31) / 32 * 32;
     finalize_small_kernel<<<batch, threads, 6 * r * r * sizeof(float), st>>>(
-        pb, pc, m1, m2, r, n_chunks, ns_iters);
+        pb, pc, m1, m2, r, ns_iters);
     return (int)cudaGetLastError();
   }
   if (r <= Cfg64::RP)
     return launch_cluster<Cfg64>(finalize_full_kernel<Cfg64>, pb, pc, m1, m2,
-                                 batch, r, n_chunks, ns_iters, st);
+                                 batch, r, ns_iters, st);
   if (r <= Cfg128::RP)
     return launch_cluster<Cfg128>(finalize_cluster_kernel<Cfg128>, pb, pc, m1,
-                                  m2, batch, r, n_chunks, ns_iters, st);
+                                  m2, batch, r, ns_iters, st);
   return launch_cluster<Cfg256>(finalize_cluster_kernel<Cfg256>, pb, pc, m1,
-                                m2, batch, r, n_chunks, ns_iters, st);
+                                m2, batch, r, ns_iters, st);
 }
 
 }  // namespace
@@ -692,25 +671,18 @@ REPRO_API int repro_fused_retract_cluster(int r) {
                                                       : Cfg256::CS;
 }
 
-// x, g, out: (batch, d, r) with 1 <= r <= kMaxR; pb, pc: (batch, n_chunks,
-// r, r) partial Grams; m1, m2: (batch, r, r).  Three launches.
+// x, g, out: (batch, d, r) with 1 <= r <= kMaxR; pb, pc: (batch, r, r),
+// the Grams B and C; m1, m2: (batch, r, r).  Three launches.
 REPRO_API int repro_fused_retract(const float* x, const float* g, float* out,
                                   float* pb, float* pc, float* m1, float* m2,
-                                  int batch, int d, int r, int chunk,
-                                  int n_chunks, int ns_iters, void* stream) {
+                                  int batch, int d, int r, int ns_iters,
+                                  void* stream) {
   if (r < 1 || r > kMaxR) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = tall::ceil_div(r, tall::kTile);
-  tall::gram_partial_kernel<true>
-      <<<dim3(tiles * tiles, n_chunks, batch), tall::kThreads, 0, st>>>(
-          x, g, pb, pc, d, r, chunk);
-  REPRO_LAUNCH_CHECK();
-  const int err = launch_finalize(pb, pc, m1, m2, batch, r, n_chunks,
-                                  ns_iters, st);
+  int err = tall::launch_gram<tall::kGramTwo>(x, g, pb, pc, batch, d, r, st);
   if (err != 0) return err;
-  tall::apply_kernel<tall::kApplyRetract>
-      <<<dim3(tall::ceil_div(d, tall::kTile) * tiles, 1, batch),
-         tall::kThreads, 0, st>>>(x, g, m1, m2, out, d, r);
-  REPRO_LAUNCH_CHECK();
-  return 0;
+  err = launch_finalize(pb, pc, m1, m2, batch, r, ns_iters, st);
+  if (err != 0) return err;
+  return tall::launch_apply<tall::kApplyRetract>(x, g, m1, m2, out, batch, d,
+                                                 r, st);
 }

@@ -1,7 +1,8 @@
 """Host side of a grouped launch over node-stacked leaves
 (``csrc/leaves.cuh``): one output buffer for all the leaves, and one launch
-for every :data:`MAX_LEAVES` of them (the int8 all-hop kernel builds its
-own launch from :func:`outputs`, :func:`pointers` and :func:`columns`).
+for every :data:`MAX_LEAVES` of them (the int8 kernels and the Stiefel
+projection build their own launches from :func:`outputs`, :func:`pointers`
+and :func:`columns`).
 """
 from __future__ import annotations
 
@@ -34,9 +35,10 @@ def outputs(xs: list[torch.Tensor],
     return outs
 
 
-def pointers(ts: list[torch.Tensor]):
-    """The tensors' data pointers as a C array of ``MAX_LEAVES``."""
-    return _PTRS(*[t.data_ptr() for t in ts])
+def pointers(ts: list[torch.Tensor | None]):
+    """The tensors' data pointers as a C array of ``MAX_LEAVES`` (null for
+    None)."""
+    return _PTRS(*[None if t is None else t.data_ptr() for t in ts])
 
 
 def columns(fs: list[int]):

@@ -89,15 +89,30 @@ def _batched(name: str, x: Tensor, g: Tensor) -> tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 
 
+def stiefel_project_leaves(xs: list[Tensor], gs: list[Tensor]
+                           ) -> list[Tensor]:
+    """P_{T_x}(g) = g - x sym(x^T g) over the last two dims of each pair of
+    ``xs`` and ``gs`` (leading dims, the node axis, batched; every leaf on
+    one device).  On the card, ONE launch for every 16 leaves whose rows
+    fit a cluster's shared memory (``stiefel_project.cluster_size``; the
+    fair fc1 and head leaves), two launches for any other leaf; the
+    outputs are views of one buffer."""
+    name = "stiefel_project"
+    if (not isinstance(xs, (list, tuple)) or not xs
+            or not isinstance(gs, (list, tuple)) or len(gs) != len(xs)):
+        raise ValueError(f"{name}: want equal, non-empty lists of points "
+                         f"and directions")
+    shapes = [_batched(name, x, g) for x, g in zip(xs, gs)]
+    if not _on_card(name, *xs, *gs):
+        return [ref.stiefel_project_ref(x, g) for x, g in zip(xs, gs)]
+    outs = _sp.launch([x.reshape(s).contiguous() for x, s in zip(xs, shapes)],
+                      [g.reshape(s).contiguous() for g, s in zip(gs, shapes)])
+    return [o.reshape(x.shape) for o, x in zip(outs, xs)]
+
+
 def stiefel_project(x: Tensor, g: Tensor) -> Tensor:
-    """P_{T_x}(g) = g - x sym(x^T g) over the last two dims; leading dims
-    (the node axis) are batched."""
-    batch, d, r = _batched("stiefel_project", x, g)
-    if not _on_card("stiefel_project", x, g):
-        return ref.stiefel_project_ref(x, g)
-    out = _sp.launch(x.reshape(batch, d, r).contiguous(),
-                     g.reshape(batch, d, r).contiguous())
-    return out.reshape(x.shape)
+    """:func:`stiefel_project_leaves` of one leaf."""
+    return stiefel_project_leaves([x], [g])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -209,19 +224,68 @@ def _payload(name: str, q: Tensor, scale: Tensor) -> tuple[int, int, Tensor]:
     return n, f, scale.reshape(n, 1)
 
 
+def quant_mix_leaves(qs: list[Tensor], scales: list[Tensor], *,
+                     base: list[Tensor] | None = None, w_self: float,
+                     w_side: float) -> list[Tensor]:
+    """One compressed ring hop ``wc*dq(q[i]) + ws*(dq(q[i-1]) + dq(q[i+1]))``,
+    ``dq(q[j]) = q[j] * scale[j]``, of each node-stacked int8 payload of
+    ``qs`` with its per-node fp32 scales (``scales``, one tensor of n per
+    leaf), neighbours wrapped mod n.  With ``base`` (one fp32 leaf of the
+    payload's size per leaf: the old public copies of error feedback), the
+    exact ring hop of the base is added: ``(wc*h[i] + ws*(h[i-1] + h[i+1]))
+    + that``, bitwise :func:`ring_mix_leaves` of the bases plus the hop
+    without a base.  Every leaf has the same n and lies on one device;
+    returns fp32 of each payload's shape.  On the card, ONE launch for every
+    16 leaves, whose outputs are views of one buffer."""
+    name = "quant_mix"
+    if (not isinstance(qs, (list, tuple)) or not qs
+            or not isinstance(scales, (list, tuple))
+            or len(scales) != len(qs)
+            or (base is not None and (not isinstance(base, (list, tuple))
+                                      or len(base) != len(qs)))):
+        raise ValueError(f"{name}: want equal, non-empty lists of payloads, "
+                         f"scales and (if given) bases")
+    n = _nodes(name, qs[0])[0]
+    flat = []
+    for q, scale in zip(qs, scales):
+        nq, f, s = _payload(name, q, scale)
+        if nq != n:
+            raise ValueError(f"{name}: leaves of {n} and {nq} nodes in one "
+                             f"call")
+        flat.append((q.reshape(n, f), s))
+    bases = None
+    if base is not None:
+        bases = []
+        for b, (q2, _) in zip(base, flat):
+            if b.ndim < 1 or b.shape[0] != n or b.numel() != q2.numel():
+                raise ValueError(f"{name}: want a base of {n} nodes and "
+                                 f"{q2.numel()} elements, got shape "
+                                 f"{tuple(b.shape)}")
+            bases.append(b.reshape(n, -1))
+    card = _on_card(name, *(q for q, _ in flat), *(s for _, s in flat),
+                    *(bases or ()),
+                    dtypes=(torch.int8,) * len(flat)
+                    + (torch.float32,) * (len(flat) + len(bases or ())))
+    if not card:
+        outs = [ref.quant_mix_ref(q2, q2.roll(1, 0), q2.roll(-1, 0), s,
+                                  s.roll(1, 0), s.roll(-1, 0), w_self, w_side)
+                for q2, s in flat]
+        if bases is not None:
+            outs = [ref.ring_mix_ref(b, b.roll(1, 0), b.roll(-1, 0), w_self,
+                                     w_side) + o for b, o in zip(bases, outs)]
+    else:
+        outs = _qm.launch([q2.contiguous() for q2, _ in flat],
+                          [s.contiguous() for _, s in flat],
+                          None if bases is None
+                          else [b.contiguous() for b in bases],
+                          w_self, w_side)
+    return [o.reshape(q.shape) for o, q in zip(outs, qs)]
+
+
 def quant_mix(q: Tensor, scale: Tensor, *, w_self: float,
               w_side: float) -> Tensor:
-    """One compressed ring hop ``wc*dq(q[i]) + ws*(dq(q[i-1]) + dq(q[i+1]))``,
-    ``dq(q[j]) = q[j] * scale[j]``, of a node-stacked int8 payload with one
-    fp32 scale per node, neighbours wrapped mod n; fp32 of ``q``'s shape."""
-    n, f, s = _payload("quant_mix", q, scale)
-    if not _on_card("quant_mix", q, s, dtypes=(torch.int8, torch.float32)):
-        q2 = q.reshape(n, f)
-        return ref.quant_mix_ref(q2, q2.roll(1, 0), q2.roll(-1, 0), s,
-                                 s.roll(1, 0), s.roll(-1, 0), w_self,
-                                 w_side).reshape(q.shape)
-    return _qm.launch(q.reshape(n, f).contiguous(), s.contiguous(), w_self,
-                      w_side).reshape(q.shape)
+    """:func:`quant_mix_leaves` of one leaf, without a base."""
+    return quant_mix_leaves([q], [scale], w_self=w_self, w_side=w_side)[0]
 
 
 def multi_hop_mix_quant_leaves(qs: list[Tensor], scales: list[Tensor], *,

@@ -12,7 +12,6 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.stiefel_project import d_chunks
 
 #: launches of this kernel since the last reset (``ops.reset_launch_counts``)
 launches = 0
@@ -28,8 +27,7 @@ MAX_R = 256
 def _lib():
     lib = build.library("retract")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_fused_retract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, p]
+    lib.repro_fused_retract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
     lib.repro_fused_retract.restype = ctypes.c_int
     lib.repro_fused_retract_cluster.argtypes = [i]
     lib.repro_fused_retract_cluster.restype = ctypes.c_int
@@ -47,20 +45,20 @@ def launch(x: torch.Tensor, g: torch.Tensor, ns_iters: int) -> torch.Tensor:
     r <= MAX_R."""
     global launches
     batch, d, r = x.shape
-    chunk, n_chunks = d_chunks(d)
 
     def empty(*shape):
         return torch.empty(shape, dtype=x.dtype, device=x.device)
 
     out = empty(batch, d, r)
-    pb, pc = empty(batch, n_chunks, r, r), empty(batch, n_chunks, r, r)
+    # the Grams x^T g and g^T g, then M1 and M2
+    pb, pc = empty(batch, r, r), empty(batch, r, r)
     m1, m2 = empty(batch, r, r), empty(batch, r, r)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _lib().repro_fused_retract(
             x.data_ptr(), g.data_ptr(), out.data_ptr(), pb.data_ptr(),
-            pc.data_ptr(), m1.data_ptr(), m2.data_ptr(), batch, d, r, chunk,
-            n_chunks, ns_iters, stream)
+            pc.data_ptr(), m1.data_ptr(), m2.data_ptr(), batch, d, r,
+            ns_iters, stream)
     build.check("retract", code)
     launches += 1
     return out

@@ -1,9 +1,11 @@
 """Time one DRGDA step's ring mixes through the stacked backend, the mix
 of a (20, 1M) leaf with 1, 3 and 67 hops, the EF-int8 k = 67 step's
-all-hop int8 tail (66 hops of x, u and y), the fused retraction at the
-step's two Stiefel leaves and at stress shapes, and the k = 1, Theorem-1
-k = 67 and EF-int8 ``quant_hops="all"`` k = 67 steps themselves, on one
-card; prints the card and one JSON line.
+all-hop int8 tail (66 hops of x, u and y), the step's tangent projection
+of its two Stiefel leaves and the projection at stress shapes, the EF-int8
+step's first hop of its four trees with the hats' exact hop, the fused
+retraction at the step's two Stiefel leaves and at stress shapes, and the
+k = 1, EF-int8 k = 1, Theorem-1 k = 67 and EF-int8 ``quant_hops="all"``
+k = 67 steps themselves, on one card; prints the card and one JSON line.
 
     python -m repro_torch.launch.mix_timing
 
@@ -18,9 +20,11 @@ configurations taken in turns, and the profiler's device time and kernel
 count per step.  Every host-clock and CUDA-event time is taken before the
 first profiler session.  The script calls only what every version of the
 port has (``StackedBackend.mix`` and ``quant_ring_hops``, or
-``quant_ring_hops_leaves`` where the port has it, ``ops.fused_retract``,
-``launch.fair.prepare``), so the same file also times an older checkout
-of the port:
+``quant_ring_hops_leaves`` where the port has it; ``ops.stiefel_project``,
+or ``ops.stiefel_project_leaves`` where the port has it; ``mix_hop`` plus
+``quant_ring_hop`` per leaf plus the add, or ``quant_ring_hop_leaves``
+where the port has it; ``ops.fused_retract``, ``launch.fair.prepare``),
+so the same file also times an older checkout of the port:
 
     PYTHONPATH=<checkout>/src python src/repro_torch/launch/mix_timing.py
 
@@ -132,14 +136,60 @@ def main() -> int:
                 for leaf in leaves]
 
     def stiefel(shape):
-        xs = torch.linalg.qr(torch.randn(shape, generator=gen, device=dev))[0]
+        xs = torch.linalg.qr(torch.randn(shape, generator=gen,
+                                         device=dev))[0].contiguous()
         return xs, 0.5 * xs + 0.1 * torch.randn(shape, generator=gen,
                                                 device=dev)
 
     fc1, head = stiefel(X_LEAVES[2]), stiefel(X_LEAVES[3])
     stress = {r: stiefel((N_NODES, 4096 if r > 37 else 1000, r))
               for r in (37, 99, 256)}
+
+    def project_step():
+        """The step's projection of fc1 and head, as the optimizer calls
+        it."""
+        if hasattr(ops, "stiefel_project_leaves"):
+            return ops.stiefel_project_leaves([fc1[0], head[0]],
+                                              [fc1[1], head[1]])
+        return [ops.stiefel_project(*fc1), ops.stiefel_project(*head)]
+
+    from repro_torch.comms.compress import quantize_det
+    wc = spec.self_weight
+    ws = (1.0 - wc) / 2.0
+
+    def wire(t):
+        leaves = list(t.values()) if isinstance(t, dict) else [t]
+        out = []
+        for leaf in leaves:
+            q, sc = quantize_det(leaf)
+            out.append((q.reshape(N_NODES, -1), sc.reshape(N_NODES, 1)))
+        return out
+
+    hat_trees = [tree(), tree(), torch.randn(Y_LEAF, generator=gen, device=dev),
+                 torch.randn(Y_LEAF, generator=gen, device=dev)]
+    wires = [wire(t) for t in (x, u, y, v)]
+
+    def first_hop():
+        """The EF-int8 step's first hop of its four trees with the old
+        hats' exact hop, as the comms engine makes it."""
+        out = []
+        for hat, w in zip(hat_trees, wires):
+            hs = list(hat.values()) if isinstance(hat, dict) else [hat]
+            base = [h.reshape(N_NODES, -1) for h in hs]
+            if hasattr(backend, "quant_ring_hop_leaves"):
+                out.append(backend.quant_ring_hop_leaves(
+                    spec, [q for q, _ in w], [sc for _, sc in w], base))
+            else:
+                mixed = backend.mix_hop(spec, base)
+                out.append([m + backend.quant_ring_hop(spec, q, sc)
+                            for m, (q, sc) in zip(mixed, w)])
+        return out
+
     cases = {
+        "project_step": project_step,
+        **{f"project_r{r}": (lambda r=r: ops.stiefel_project(*stress[r]))
+           for r in stress},
+        "first_hop_ef": first_hop,
         "quant_tail_k67": lambda: [quant_tail(t) for t in (x, u, y)],
         "retract_step": lambda: [ops.fused_retract(*fc1),
                                  ops.fused_retract(*head)],
@@ -159,6 +209,9 @@ def main() -> int:
     int8_all = dataclasses.replace(COMM_PRESETS["int8_ef"], quant_hops="all")
     runs = {f"k{k}": prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
                              k_steps=k, device=dev) for k in (1, K_THEOREM1)}
+    runs["int8_k1"] = prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
+                              k_steps=1, device=dev,
+                              comm=COMM_PRESETS["int8_ef"])
     runs[f"int8_all_k{K_THEOREM1}"] = prepare(
         "drgda", True, image_hw=28, n_nodes=N_NODES, k_steps=K_THEOREM1,
         device=dev, comm=int8_all)
@@ -166,7 +219,7 @@ def main() -> int:
     for name, fn in cases.items():
         total, _, by_kernel = device_us(fn)
         out[f"{name}_device_us"] = total
-        if name.startswith(("retract", "quant")):
+        if name.startswith(("retract", "quant", "project", "first")):
             out[f"{name}_by_kernel_us"] = by_kernel
     for k, run in runs.items():
         state = run.state

@@ -13,7 +13,9 @@ Tolerances:
 * ``LowRank``: 1e-5 (QR and the sketch products are LAPACK / BLAS calls
   that round in their own order in each package).
 * one ``CommEngine.mix`` round on a clean ring, int8 and top-k, fixed and
-  adaptive gamma, ``quant_hops`` first and all: bitwise against the JAX
+  adaptive gamma, ``quant_hops`` first and all (the int8 first hop one
+  ``quant_ring_hop_leaves`` call per tree, with or without error
+  feedback, at n = 5 and on the 2-node ring): bitwise against the JAX
   engine run eagerly (``jax.disable_jit()``: under ``jit`` XLA:CPU
   contracts the ring combine into an FMA).  Low-rank: 1e-5, as above.  A
   faulty channel: 1e-6 (the effective W_t is applied by einsum, a BLAS
@@ -141,6 +143,54 @@ def test_topk_equal_and_lowrank_close():
 # ---------------------------------------------------------------------------
 # channel
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [2, 5])
+@pytest.mark.parametrize("error_feedback", [True, False])
+@pytest.mark.parametrize("quant_hops,k", [("first", 1), ("all", 3)])
+def test_engine_first_hop_takes_one_backend_call_per_tree(
+        monkeypatch, n, error_feedback, quant_hops, k):
+    """The int8 first hop of a slot's tree, with error feedback's exact hop
+    of the old public copies fused in, is ONE ``quant_ring_hop_leaves``
+    call over all its leaves (one grouped ``quant_mix`` launch on the card,
+    no ``ring_mix`` of the hats and no per-leaf add), and the round still
+    matches the JAX engine bit for bit; a 2-node ring too, whose hat hop
+    keeps ``mix_ring``'s own expression."""
+    from repro_torch.comms.backend import StackedBackend
+    from repro_torch.kernels import ops
+    calls, rings = [], []
+    grouped = StackedBackend.quant_ring_hop_leaves
+    ring_leaves = ops.ring_mix_leaves
+
+    def spy(self, spec, qs, scales, base=None):
+        calls.append((len(qs), base is not None))
+        return grouped(self, spec, qs, scales, base)
+
+    def ring_spy(xs, **kw):
+        rings.append(len(xs))
+        return ring_leaves(xs, **kw)
+
+    monkeypatch.setattr(StackedBackend, "quant_ring_hop_leaves", spy)
+    monkeypatch.setattr(ops, "ring_mix_leaves", ring_spy)
+    comm = CommSpec(compressor="int8", gamma=0.8, quant_hops=quant_hops,
+                    error_feedback=error_feedback, seed=5)
+    je, te = _engines(comm, n, k)
+    rng = np.random.default_rng(13 + n)
+    slots = _slots(rng, n)
+    js = je.init_state({s: jax.tree.map(jnp.asarray, t)
+                        for s, t in slots.items()})
+    ts = te.init_state({s: _to_port(t) for s, t in slots.items()})
+    for rnd in range(2):
+        calls.clear()
+        for slot, tree in slots.items():
+            jout, js = _jround(je, js, slot, tree, k, rnd)
+            tout, ts = te.mix(ts, slot, _to_port(tree), steps=k, rnd=rnd)
+            _assert_tree(tout, jout)
+            _assert_tree(ts.hats[slot], js.hats[slot])
+        assert calls == [(4, error_feedback), (1, error_feedback)]
+    # the hats' exact hop is inside the grouped int8 call (n > 2) or
+    # mix_ring's own expression (n = 2): never a ring_mix call
+    assert rings == []
 
 
 @pytest.mark.parametrize("comm", [

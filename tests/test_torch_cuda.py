@@ -7,8 +7,10 @@ machine that has only PyTorch:
     python -m pytest -q tests/test_torch_cuda.py
 
 Gates as in ``chip_smoke.py``: the ring mixes (fp32 and int8, one leaf
-or a grouped tree) bitwise,
-stiefel_project 1e-5 relative, fused_retract 5e-5 absolute, the attention
+or a grouped tree, the int8 first hop with the exact hop of a base fused
+in) bitwise,
+stiefel_project 1e-5 relative (one leaf or a grouped tree, on chip or
+streaming), fused_retract 5e-5 absolute, the attention
 kernels 2e-5 absolute in fp32 and 2e-2 in bf16 (the JAX package's gates;
 bf16 with outputs in [4, 8) against the reference's unrounded fp32 result),
 with exact zeros for query rows without keys and for empty decode slots.
@@ -116,6 +118,93 @@ def test_cuda_stiefel_kernels_vs_plain(cuda, shape):
     assert float((got - ref.fused_retract_ref(x, g)).abs().max()) <= 5e-5
 
 
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def test_cuda_stiefel_project_leaves_main_tree_one_launch(cuda):
+    """The fair tree's two Stiefel leaves (fc1, head) in ONE launch, each
+    within 1e-5 relative of the plain version, and the one-leaf entry
+    gives the same numbers."""
+    from repro_torch.kernels import stiefel_project as _sp
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    shapes = [(20, 784, 64), (20, 64, 3)]
+    assert [_sp.cluster_size(d, r) for _, d, r in shapes] == [4, 4]
+    xs, gs = [], []
+    for shape in shapes:
+        x = torch.linalg.qr(torch.randn(shape, generator=gen, device=cuda))[0]
+        xs.append(x)
+        gs.append(0.5 * x + 0.1 * torch.randn(shape, generator=gen,
+                                              device=cuda))
+    ops.reset_launch_counts()
+    got = ops.stiefel_project_leaves(xs, gs)
+    assert ops.launch_counts()["stiefel_project"] == 1
+    for x, g, out in zip(xs, gs, got):
+        assert out.shape == x.shape
+        assert _rel_err(out, ref.stiefel_project_ref(x, g)) <= 1e-5
+        assert torch.equal(ops.stiefel_project(x, g), out)
+
+
+# (batch, d, r): d a multiple of no tile; the last leaf's rows overflow a
+# cluster's shared memory, so it streams
+STIEFEL_RS = [(3, 313, 1), (3, 313, 3), (3, 313, 37), (3, 313, 64),
+              (3, 409, 99), (3, 525, 128), (3, 1037, 256), (3, 5001, 64)]
+
+
+@pytest.mark.parametrize("shape", STIEFEL_RS)
+def test_cuda_stiefel_project_leaves_every_r(cuda, shape):
+    """Each r on its route: one launch on chip (a cluster of 4 or 8 CTAs),
+    two streaming (the tensor-core Gram and apply), within 1e-5 relative;
+    and every leaf of the list in one grouped call."""
+    from repro_torch.kernels import stiefel_project as _sp
+    gen = torch.Generator(device=cuda).manual_seed(shape[2])
+    x = torch.linalg.qr(torch.randn(shape, generator=gen, device=cuda))[0]
+    g = 0.5 * x + 0.1 * torch.randn(shape, generator=gen, device=cuda)
+    ctas = _sp.cluster_size(*shape[1:])
+    assert (ctas in (4, 8)) == (shape[2] <= 128 and shape[1] < 5000)
+    ops.reset_launch_counts()
+    got = ops.stiefel_project_leaves([x], [g])[0]
+    assert ops.launch_counts()["stiefel_project"] == (1 if ctas else 2)
+    assert _rel_err(got, ref.stiefel_project_ref(x, g)) <= 1e-5
+
+
+def test_cuda_stiefel_project_leaves_mixed_routes(cuda):
+    """A group of every leaf above: one launch for the on-chip ones (all
+    with the largest cluster any of them needs, so a leaf's sums may run
+    in another order than in a call of its own), two for each streaming
+    one, every output within 1e-5 relative of the plain version."""
+    from repro_torch.kernels import stiefel_project as _sp
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    xs = [torch.linalg.qr(torch.randn(s, generator=gen, device=cuda))[0]
+          for s in STIEFEL_RS]
+    gs = [0.5 * x + 0.1 * torch.randn(x.shape, generator=gen, device=cuda)
+          for x in xs]
+    streams = sum(_sp.cluster_size(*s[1:]) == 0 for s in STIEFEL_RS)
+    ops.reset_launch_counts()
+    got = ops.stiefel_project_leaves(xs, gs)
+    assert ops.launch_counts()["stiefel_project"] == 1 + 2 * streams
+    for x, g, out in zip(xs, gs, got):
+        assert out.shape == x.shape
+        assert _rel_err(out, ref.stiefel_project_ref(x, g)) <= 1e-5
+
+
+def test_cuda_stiefel_project_streaming_stress(cuda):
+    """(20, 4096, 256) streams through the 3xTF32 tensor-core route: two
+    launches, 1e-5 relative."""
+    from repro_torch.kernels import stiefel_project as _sp
+    shape = (20, 4096, 256)
+    assert _sp.cluster_size(*shape[1:]) == 0
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.linalg.qr(torch.randn(shape, generator=gen, device=cuda))[0]
+    g = 0.5 * x + 0.1 * torch.randn(shape, generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.stiefel_project(x, g)
+    assert ops.launch_counts()["stiefel_project"] == 2
+    assert _rel_err(got, ref.stiefel_project_ref(x, g)) <= 1e-5
+    got = ops.fused_retract(x, g)
+    assert float((got - ref.fused_retract_ref(x, g)).abs().max()) <= 5e-5
+
+
 @pytest.mark.parametrize("r,ctas", [(3, 1), (37, 4), (64, 4), (98, 8),
                                     (99, 8), (128, 8), (256, 8)])
 def test_cuda_fused_retract_every_cluster_size(cuda, r, ctas):
@@ -180,6 +269,84 @@ def test_cuda_quant_kernels_bitwise(cuda, n, f):
         assert torch.equal(got, want), hops
     counts = ops.launch_counts()
     assert counts["quant_mix"] == 1 and counts["multi_hop_mix_quant"] == 3
+
+
+@pytest.mark.parametrize("n", [3, 20])
+@pytest.mark.parametrize("with_base", [True, False])
+def test_cuda_quant_mix_leaves_bitwise(cuda, n, with_base):
+    """The grouped int8 hop of a ragged tree (char4 / float4 leaves and
+    scalar ones, one base not 16-byte aligned), with the old public copies'
+    exact hop fused in or without, in ONE launch: bitwise the chain it
+    replaces (ring_mix_leaves of the bases, quant_mix per leaf, the add)
+    and the plain version."""
+    widths = [3, 72, 1152, 13, 50176, 1152]
+    qs, ss = _quant_tree(cuda, n, widths, n + with_base)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    base = None
+    if with_base:
+        base = [torch.randn((n, f), generator=gen, device=cuda)
+                for f in widths[:-1]]
+        base.append(torch.randn(n * widths[-1] + 1, generator=gen,
+                                device=cuda)[1:].view(n, widths[-1]))
+        assert base[-1].data_ptr() % 16 != 0
+    ops.reset_launch_counts()
+    got = ops.quant_mix_leaves(qs, ss, base=base, w_self=WC, w_side=WS)
+    assert ops.launch_counts()["quant_mix"] == 1
+    chain = ops.ring_mix_leaves(base, w_self=WC, w_side=WS) if base else None
+    for j, (q, s) in enumerate(zip(qs, ss)):
+        plain = _quant_hop_plain(q, s)
+        one = ops.quant_mix(q, s, w_self=WC, w_side=WS)
+        assert torch.equal(one, plain)
+        if base is not None:
+            plain = ref.ring_mix_ref(base[j], base[j].roll(1, 0),
+                                     base[j].roll(-1, 0), WC, WS) + plain
+            one = chain[j] + one
+        assert got[j].shape == q.shape
+        assert torch.equal(got[j], one) and torch.equal(got[j], plain)
+
+
+@pytest.mark.parametrize("count,launches", [(16, 1), (17, 2)])
+def test_cuda_quant_mix_leaves_launches_per_16_leaves(cuda, count, launches):
+    qs, ss = _quant_tree(cuda, 20, [5 + j for j in range(count)], count)
+    base = [torch.ones(q.shape, device=cuda) for q in qs]
+    ops.reset_launch_counts()
+    got = ops.quant_mix_leaves(qs, ss, base=base, w_self=WC, w_side=WS)
+    assert ops.launch_counts()["quant_mix"] == launches
+    for q, s, g in zip(qs, ss, got):
+        assert torch.equal(g, 1.0 + _quant_hop_plain(q, s))
+    assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+
+
+def test_cuda_stacked_backend_fused_first_hop(cuda):
+    """``StackedBackend.quant_ring_hop_leaves`` with a base: one launch for
+    the tree, bitwise ``mix_hop`` of the base plus the int8 hop; on a
+    2-node ring the base keeps ``mix_ring``'s expression."""
+    for n in (20, 2):
+        spec = GossipSpec(n_nodes=n)
+        qs, ss = _quant_tree(cuda, n, QUANT_TREE, 30 + n)
+        gen = torch.Generator(device=cuda).manual_seed(n)
+        base = [torch.randn(q.shape, generator=gen, device=cuda) for q in qs]
+        backend = StackedBackend()
+        ops.reset_launch_counts()
+        got = backend.quant_ring_hop_leaves(spec, qs, ss, base)
+        assert ops.launch_counts()["quant_mix"] == 1
+        mixed = backend.mix_hop(spec, base)
+        for j, (q, s) in enumerate(zip(qs, ss)):
+            want = mixed[j] + backend.quant_ring_hop(spec, q, s)
+            assert torch.equal(got[j], want)
+
+
+def test_cuda_grouped_wrappers_refuse_other_dtypes(cuda):
+    x = torch.randn(4, 8, 2, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        ops.stiefel_project_leaves([x.float(), x], [x.float(), x])
+    q = torch.zeros(4, 8, dtype=torch.int8, device=cuda)
+    s = torch.ones(4, 1, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ops.quant_mix_leaves([q], [s], base=[x[:, :, 0]], w_self=WC,
+                             w_side=WS)
+    with pytest.raises(TypeError, match="int8"):
+        ops.quant_mix_leaves([q.float()], [s], w_self=WC, w_side=WS)
 
 
 def test_cuda_quant_ring_hops_is_the_plain_schedule(cuda):

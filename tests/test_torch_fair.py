@@ -300,20 +300,23 @@ _INT8_ALL = dataclasses.replace(COMM_PRESETS["int8_ef"], quant_hops="all")
 # run) at a fraction of the CPU time
 @pytest.mark.parametrize("name,det,k,comm,per_step", [
     # one grouped call per mixed tree: x, y, u with k hops, v with one
-    ("drgda", True, 1, None, {"ring": 4, "multi": 0}),
-    ("drsgda", False, 1, None, {"ring": 4, "multi": 0}),
-    ("drgda", True, 3, None, {"ring": 1, "multi": 3}),
-    # EF-int8: the error-feedback base hop of each of the four hats
-    ("drgda", True, 1, COMM_PRESETS["int8_ef"], {"ring": 4, "multi": 0}),
-    ("drgda", True, 3, _INT8_ALL, {"ring": 4, "multi": 0}),
+    ("drgda", True, 1, None, {"ring": 4, "multi": 0, "quant": 0}),
+    ("drsgda", False, 1, None, {"ring": 4, "multi": 0, "quant": 0}),
+    ("drgda", True, 3, None, {"ring": 1, "multi": 3, "quant": 0}),
+    # EF-int8: one grouped int8 first hop per tree, the error-feedback hop
+    # of the four hats fused into it
+    ("drgda", True, 1, COMM_PRESETS["int8_ef"], {"ring": 0, "multi": 0,
+                                                 "quant": 4}),
+    ("drgda", True, 3, _INT8_ALL, {"ring": 0, "multi": 0, "quant": 4}),
     ("drgda", True, 1, COMM_PRESETS["int8_ef_drop5"], {"ring": 0,
-                                                       "multi": 0}),
+                                                       "multi": 0,
+                                                       "quant": 0}),
 ])
 def test_main_path_grouped_mix_calls_per_step(monkeypatch, name, det, k,
                                               comm, per_step):
     """The grouped ring-mix calls of the main path, with evaluation every
     step: ``chip_smoke.py`` holds the card's launch counts to these."""
-    calls = {"ring": 0, "multi": 0}
+    calls = {"ring": 0, "multi": 0, "quant": 0}
 
     def spy(key, fn):
         def call(*args, **kw):
@@ -325,10 +328,46 @@ def test_main_path_grouped_mix_calls_per_step(monkeypatch, name, det, k,
                         spy("ring", ops.ring_mix_leaves))
     monkeypatch.setattr(ops, "multi_hop_mix_leaves",
                         spy("multi", ops.multi_hop_mix_leaves))
+    monkeypatch.setattr(ops, "quant_mix_leaves",
+                        spy("quant", ops.quant_mix_leaves))
     steps = 2
     run_method(name, steps, det, image_hw=8, n_nodes=5, k_steps=k,
                eval_every=1, device="cpu", comm=comm)
     assert calls == {key: c * steps for key, c in per_step.items()}
+
+
+@pytest.mark.parametrize("comm", [None, COMM_PRESETS["int8_ef"]])
+def test_a_step_projects_every_stiefel_leaf_in_one_call(monkeypatch, comm):
+    """A DRGDA step's Riemannian gradient projects fc1 and head through ONE
+    ``stiefel_project_leaves`` call (one launch on the card), and an
+    EF-int8 step's first hops are one grouped ``quant_mix_leaves`` call per
+    tree, with no exact ring mix of the hats."""
+    from repro_torch.launch.fair import prepare
+    calls = {"project": [], "quant": 0, "ring": 0}
+    grouped, quant, ring = (ops.stiefel_project_leaves, ops.quant_mix_leaves,
+                            ops.ring_mix_leaves)
+
+    def project_spy(xs, gs):
+        calls["project"].append(tuple(x.shape for x in xs))
+        return grouped(xs, gs)
+
+    def count(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    run = prepare("drgda", True, image_hw=8, n_nodes=5, k_steps=1,
+                  device="cpu", comm=comm)
+    monkeypatch.setattr(ops, "stiefel_project_leaves", project_spy)
+    monkeypatch.setattr(ops, "quant_mix_leaves", count("quant", quant))
+    monkeypatch.setattr(ops, "ring_mix_leaves", count("ring", ring))
+    state, _ = run.opt.step(run.state, run.full)
+    shapes = [tuple(run.state.x[k].shape) for k in sorted(run.state.x)
+              if k in ("fc1", "head")]
+    assert calls["project"] == [tuple(shapes)]
+    assert calls["quant"] == (4 if comm else 0)
+    assert calls["ring"] == (0 if comm else 4)
 
 
 def test_run_method_refuses_cuda_without_a_card():

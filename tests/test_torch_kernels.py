@@ -12,13 +12,17 @@ NumPy inputs.  Tolerances:
   Pallas-interpret results differ by the rounding of one product per hop;
   the ring hop is non-expansive in the max norm, so the difference stays
   within ``hops * eps32 * max|x|`` (``_fma_bound``).
-* stiefel_project: 1e-6 absolute at unit-scale inputs.
+* stiefel_project, one leaf or a grouped tree (``stiefel_project_leaves``,
+  and ``geometry.tangent_project_tree``): 1e-6 absolute at unit-scale
+  inputs.
 * fused_retract: 5e-5 against ``retract_polar(..., method="eigh")`` (the
   JAX package's own gate) and against its Pallas kernel (ns_iters = 20
   pinned, so no tuned config applies).
 * quant_mix / multi_hop_mix_quant, one leaf or a grouped tree
-  (``multi_hop_mix_quant_leaves``, and the stacked backend's
-  ``quant_ring_hops_leaves``): bitwise against the eager oracles and
+  (``quant_mix_leaves``, with the old public copies' exact hop fused in or
+  without; ``multi_hop_mix_quant_leaves``, and the stacked backend's
+  ``quant_ring_hops_leaves``): bitwise against the eager oracles (for the
+  fused hop, the JAX package's eager ``mix_ring`` plus its oracle) and
   against the JAX package's stacked hop-by-hop ``quant_ring_hops`` run
   eagerly.  Against the Pallas kernels in interpret mode (jitted, so the
   combine may be FMA-contracted): quant_mix within one rounding of its
@@ -258,6 +262,79 @@ def test_quant_mix_bitwise_vs_oracle(shape, w):
         2 * EPS32 * np.abs(want).max()
 
 
+# a tree of payload widths: the fair CNN's y / v, conv1 and an odd width
+# (the kernel's scalar path), and widths of four (its char4 / float4 path)
+QUANT_WIDTHS = [3, 72, 13, 1152, 8]
+
+
+@pytest.mark.parametrize("n", [3, 5, 20])
+@pytest.mark.parametrize("with_base", [True, False])
+def test_quant_mix_leaves_bitwise_vs_eager_mix_ring_plus_oracle(n, with_base):
+    """The grouped int8 hop of a tree, with the old public copies' exact
+    hop fused in (``base``) or without, == the JAX package's eager
+    ``mix_ring(hat) + quant_mix_ref`` (the first hop of its engine), bit
+    for bit, leaf by leaf; and == the port's own chain (ring_mix_leaves of
+    the bases, quant_mix per leaf, then the sum)."""
+    from repro.core import gossip as jgossip
+    rng = np.random.default_rng(n + 7 * with_base)
+    qs, ss, hats = [], [], []
+    for f in QUANT_WIDTHS:
+        _, q, s = _payload(rng, (n, f))
+        qs.append(q)
+        ss.append(s.reshape(n, 1))
+        hats.append(rng.normal(size=(n, f)).astype(np.float32))
+    base = [_t(h) for h in hats] if with_base else None
+    got = ops.quant_mix_leaves(qs, ss, base=base, w_self=WC, w_side=WS)
+    chain = ops.ring_mix_leaves(base, w_self=WC, w_side=WS) if with_base \
+        else None
+    for j, (q, s, h) in enumerate(zip(qs, ss, hats)):
+        q2, s2 = _np(q), _np(s)
+        args = [jnp.asarray(a) for a in (q2, np.roll(q2, 1, 0),
+                                         np.roll(q2, -1, 0), s2,
+                                         np.roll(s2, 1, 0), np.roll(s2, -1, 0))]
+        with jax.disable_jit():
+            want = jref.quant_mix_ref(*args, WC, WS)
+            if with_base:
+                want = jgossip.mix_ring(jnp.asarray(h), steps=1,
+                                        self_weight=WC) + want
+        assert got[j].dtype == torch.float32 and got[j].shape == q.shape
+        np.testing.assert_array_equal(_np(got[j]), np.asarray(want))
+        one = ops.quant_mix(q, s, w_self=WC, w_side=WS)
+        if with_base:
+            one = chain[j] + one
+        assert torch.equal(got[j], one)
+
+
+def test_quant_mix_leaves_operand_checks():
+    q = torch.zeros(3, 5, dtype=torch.int8)
+    s = torch.ones(3, 1)
+    with pytest.raises(ValueError, match="non-empty lists"):
+        ops.quant_mix_leaves([], [], w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="non-empty lists"):
+        ops.quant_mix_leaves([q, q], [s], w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="non-empty lists"):
+        ops.quant_mix_leaves([q], [s], base=[torch.zeros(3, 5)] * 2,
+                             w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="nodes in one call"):
+        ops.quant_mix_leaves([q, torch.zeros(4, 5, dtype=torch.int8)],
+                             [s, torch.ones(4, 1)], w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="one scale per node"):
+        ops.quant_mix_leaves([q], [torch.ones(2, 1)], w_self=WC, w_side=WS)
+    with pytest.raises(ValueError, match="a base of 3 nodes and 15"):
+        ops.quant_mix_leaves([q], [s], base=[torch.zeros(3, 4)], w_self=WC,
+                             w_side=WS)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.quant_mix_leaves([q], [s], base=[torch.zeros(3, 5, device="meta")],
+                             w_self=WC, w_side=WS)
+    # more leaves than one launch takes: the plain version has no limit
+    out = ops.quant_mix_leaves([q] * (leaves.MAX_LEAVES + 1),
+                               [s] * (leaves.MAX_LEAVES + 1),
+                               base=[torch.ones(3, 5)] * (leaves.MAX_LEAVES + 1),
+                               w_self=WC, w_side=WS)
+    assert len(out) == leaves.MAX_LEAVES + 1
+    assert all(torch.equal(o, torch.ones(3, 5)) for o in out)
+
+
 @pytest.mark.parametrize("n,f,hops", [(3, 7, 1), (5, 33, 3), (4, 16, 9),
                                       (6, 130, 4), (20, 8, 23)])
 def test_multi_hop_mix_quant_vs_reference(n, f, hops):
@@ -382,6 +459,77 @@ def test_stiefel_project_vs_oracle(shape):
     np.testing.assert_allclose(got, pallas, atol=1e-6)
 
 
+# one tree of Stiefel leaves: the fair head leaf, fc1 at a narrow width, an
+# unbatched leaf and a ragged one
+STIEFEL_TREE = [(3, 64, 3), (4, 48, 8), (40, 6), (2, 130, 17)]
+
+
+def test_stiefel_project_leaves_vs_oracle_and_pallas():
+    """The grouped projection of a tree, leaf by leaf, against the JAX
+    oracle and its Pallas kernel in interpret mode (1e-6), and equal to the
+    one-leaf entry."""
+    rng = np.random.default_rng(3)
+    pairs = [_stiefel_pair(rng, shape) for shape in STIEFEL_TREE]
+    got = ops.stiefel_project_leaves([_t(x) for x, _ in pairs],
+                                     [_t(g) for _, g in pairs])
+    assert len(got) == len(pairs)
+    for (x, g), out in zip(pairs, got):
+        assert out.shape == x.shape
+        want = np.asarray(jref.stiefel_project_ref(jnp.asarray(x),
+                                                   jnp.asarray(g)))
+        np.testing.assert_allclose(_np(out), want, atol=1e-6)
+        pallas = np.asarray(jops.stiefel_project(
+            jnp.asarray(x), jnp.asarray(g), impl="pallas_interpret"))
+        np.testing.assert_allclose(_np(out), pallas, atol=1e-6)
+        assert torch.equal(out, ops.stiefel_project(_t(x), _t(g)))
+
+
+def test_stiefel_project_leaves_operand_checks():
+    x = torch.zeros(3, 5, 2)
+    with pytest.raises(ValueError, match="non-empty lists"):
+        ops.stiefel_project_leaves([], [])
+    with pytest.raises(ValueError, match="non-empty lists"):
+        ops.stiefel_project_leaves([x, x], [x])
+    with pytest.raises(ValueError, match="matching"):
+        ops.stiefel_project_leaves([x, x], [x, torch.zeros(3, 5, 3)])
+    with pytest.raises(ValueError, match="different devices"):
+        ops.stiefel_project_leaves([x, x], [x, torch.zeros(3, 5, 2,
+                                                           device="meta")])
+    # more leaves than one launch takes: the plain version has no limit
+    xs = [torch.linalg.qr(torch.randn(2, 7, 2))[0]] * (leaves.MAX_LEAVES + 1)
+    out = ops.stiefel_project_leaves(xs, xs)
+    assert len(out) == len(xs)
+    assert all(float(o.abs().max()) < 1e-6 for o in out)
+
+
+def test_tangent_project_tree_groups_each_geometry(monkeypatch):
+    """``tangent_project_tree`` sends every Stiefel leaf of a tree through
+    ONE ``stiefel_project_leaves`` call and leaves the Euclidean leaves to
+    their own projection; the result equals the leaf-by-leaf one."""
+    from repro_torch.geometry import as_manifold_map, tangent_project_tree
+    calls = []
+    grouped = ops.stiefel_project_leaves
+
+    def spy(xs, gs):
+        calls.append(len(xs))
+        return grouped(xs, gs)
+
+    monkeypatch.setattr(ops, "stiefel_project_leaves", spy)
+    rng = np.random.default_rng(5)
+    mmap = as_manifold_map({"conv": "euclidean", "fc1": "stiefel",
+                            "head": "stiefel"})
+    x, g = {}, {}
+    for key, shape in (("conv", (3, 4, 2)), ("fc1", (3, 12, 6)),
+                       ("head", (3, 6, 3))):
+        xk, gk = _stiefel_pair(rng, shape)
+        x[key], g[key] = _t(xk), _t(gk)
+    got = tangent_project_tree(mmap, x, g)
+    assert calls == [2] and list(got) == list(x)
+    for key in x:
+        assert torch.equal(got[key],
+                           mmap[key].tangent_project(x[key], g[key]))
+
+
 @pytest.mark.parametrize("shape", [(40, 6), (3, 64, 3), (2, 130, 17)])
 def test_fused_retract_vs_eigh_polar_and_pallas(shape):
     x, g = _stiefel_pair(np.random.default_rng(7 + len(shape)), shape)
@@ -407,11 +555,13 @@ def test_cpu_calls_launch_nothing():
     ops.reset_launch_counts()
     x = torch.linalg.qr(torch.randn(2, 12, 3))[0]
     ops.stiefel_project(x, x)
+    ops.stiefel_project_leaves([x, x], [x, x])
     ops.fused_retract(x, x)
     ops.ring_mix(x, w_self=WC, w_side=WS)
     ops.multi_hop_mix(x, hops=2, w_self=WC, w_side=WS)
     q, s = compress.quantize_det(x)
     ops.quant_mix(q, s, w_self=WC, w_side=WS)
+    ops.quant_mix_leaves([q, q], [s, s], base=[x, x], w_self=WC, w_side=WS)
     ops.multi_hop_mix_quant(q, s, hops=3, w_self=WC, w_side=WS)
     ops.flash_attention(x[None], x[None], x[None])
     ops.paged_decode_attention(x, x[None], x[None],
@@ -427,11 +577,14 @@ def test_cpu_calls_launch_nothing():
     lambda x: ops.ring_mix(x, w_self=WC, w_side=WS),
     lambda x: ops.multi_hop_mix(x, hops=3, w_self=WC, w_side=WS),
     lambda x: ops.stiefel_project(x, x),
+    lambda x: ops.stiefel_project_leaves([x, x], [x, x]),
     lambda x: ops.fused_retract(x, x),
     lambda x: ops.quant_mix(x.to(torch.int8), x[:, :1, :1], w_self=WC,
                             w_side=WS),
     lambda x: ops.multi_hop_mix_quant(x.to(torch.int8), x[:, 0, 0], hops=2,
                                       w_self=WC, w_side=WS),
+    lambda x: ops.quant_mix_leaves([x.to(torch.int8)], [x[:, 0, 0]],
+                                   base=[x], w_self=WC, w_side=WS),
     lambda x: ops.flash_attention(x[None], x[None], x[None]),
     lambda x: ops.paged_decode_attention(
         x, x[None], x[None], torch.zeros(4, 1, dtype=torch.int32,
