@@ -46,8 +46,8 @@
    to 288, one empty) and at 64 slots of 2048 tokens (no PyTorch call
    gathers through a block table).  Query rows without keys and empty
    slots must be exact zeros.
-4. Main path, two paths, each with the launch counts set to 0 just before
-   it and read just after:
+4. Main path, three paths, each with the launch counts set to 0 just
+   before it and read just after:
    * full precision: DRGDA (full batch, polar_fused) and DRSGDA (minibatch)
      through ``repro_torch.launch.fair.run_method`` on the paper's 20-node
      ring with k = 1 and 28x28 images, 30 steps each, then DRGDA at the
@@ -55,17 +55,32 @@
    * EF-int8 gossip: DRGDA with ``CommSpec(compressor="int8", gamma=0.95)``
      at k = 1 for 30 steps, the same with ``quant_hops="all"`` at k = 67
      for 5 steps, and the 5%-drop channel at k = 1 for 10 steps;
+   * the paper's baselines: GT-GDA (full batch), GNSD-A, DM-HSGD and GT-SRVR
+     (minibatches; GT-SRVR anchors at t = 0 and 16) for 30 steps each,
+     GT-SRVR over EF-int8 gossip for 10, and DRGDA under the Cayley
+     retraction for 10;
    losses finite, Stiefel residual <= 1e-4, every kernel of the path
-   launched, and the ring mixes and the int8 kernels exactly as often as
-   the steps need (one grouped ring call per mixed tree; for EF-int8 one
-   grouped first hop per tree and no ring_mix, one grouped int8 tail call
-   per tree).  Then a profile of a DRGDA k = 1 step, an EF-int8 k = 1
-   step, a DRGDA k = 67 step and an EF-int8 quant_hops="all" k = 67 step
-   (wall time, device time and busy share, the kernels that take the
-   most, and the port's launches a step: one stiefel_project launch, and
-   for EF-int8 four quant_mix and no ring_mix, asserted), and small DRGDA
-   runs on the card against the same runs on the CPU (plain versions),
-   full precision and EF-int8.
+   launched, and the ring mixes, the int8 kernels and (for the baselines
+   and Cayley) stiefel_project, fused_retract and multi_hop_mix exactly as
+   often as the init, the steps and the evaluations need (one grouped ring
+   call per mixed tree; for EF-int8 one grouped first hop per tree and no
+   ring_mix, one grouped int8 tail call per tree; a baseline step projects
+   nothing, a Cayley step 5 times).  Then the figures: paper Figs. 1-2 at
+   the JAX package's settings (20 nodes, 14x14 images, seed 0, 120 and 150
+   steps) from its initial weights, every curve point held against its
+   curves (``tests/data/fair_reference_curves.json``) within the gate the
+   file records for it, where the JAX package reproduces itself, and the
+   gap reported where it does not, with the launches of the whole run.  Then a profile of a
+   DRGDA k = 1 step, an EF-int8 k = 1 step, a DRGDA k = 67 step, an EF-int8
+   quant_hops="all" k = 67 step, a GT-GDA step and a DM-HSGD step, and a
+   step of each of the six methods as the figures phase runs it (wall
+   time, device time and busy share, the kernels that take the most, and
+   the port's launches a step: one stiefel_project launch, for EF-int8 four
+   quant_mix and no ring_mix, for the baselines four ring_mix and no
+   projection, asserted; for the baselines also the projection back alone,
+   its share of the step's wall and device time), and small runs on the
+   card against the same runs on the CPU (plain versions): DRGDA full
+   precision and EF-int8, GT-SRVR with q = 4, DRGDA under Cayley.
 5. Serving path: smollm-135m at its published widths (30 layers, fp32,
    random weights from a seed) through the paged engine
    (``repro_torch.serve``): 8 requests with ragged prompts of 24-256
@@ -80,8 +95,9 @@
    CUDA events, profiler device time, the kernels that take the most),
    then the SMOKE config's engine on the card against the CPU.
    This phase runs last, after the main path's profile and agreement.
-6. Prints the kernel table as one JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. Prints the kernel table as one JSON line (``launches`` from the path a
+   kernel belongs to, ``path_launches`` from every path), the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It needs a CUDA device and the repository's ``src/`` beside it.
@@ -97,6 +113,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -135,6 +152,7 @@ FULL_PATH = ("stiefel_project", "fused_retract", "ring_mix", "multi_hop_mix")
 INT8_PATH = ("stiefel_project", "fused_retract", "quant_mix",
              "multi_hop_mix_quant")
 SERVE_PATH = ("flash_attention", "paged_decode")
+BASELINE_PATH = ("stiefel_project", "ring_mix", "quant_mix")
 
 # Main-path geometry: 20 nodes, 28x28x1 images, init_cnn's widths.
 N_NODES = 20
@@ -619,43 +637,65 @@ def kernel_phase(device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
+class PathRun(NamedTuple):
+    """One ``run_method`` call of a path, and the launches each of its
+    steps must make (``expect``: kernel -> launches a step)."""
+    name: str
+    steps: int
+    det: bool
+    k: int
+    comm: object
+    expect: dict
+    retraction: str = "polar_fused"
+
+
+# launches of one evaluation (a curve point of run_method): M_t's Riemannian
+# gradient projects fc1 and head in one grouped stiefel_project call; and
+# of DRGDA's and DRSGDA's init, which projects the first gradient so
+# (the baselines' init takes Euclidean gradients)
+EVAL_LAUNCHES = {"stiefel_project": 1}
+INIT_LAUNCHES = {"drgda": {"stiefel_project": 1},
+                 "drsgda": {"stiefel_project": 1}}
+
+
 def _run_path(label: str, runs, kernels) -> dict:
-    """Drive ``runs`` through ``run_method`` with the launch counts set to 0
-    just before and read just after; every kernel in ``kernels`` must have
-    launched.  Returns the path's counts."""
+    """Drive ``runs`` (:class:`PathRun`) through ``run_method`` with the
+    launch counts set to 0 just before and read just after; every kernel
+    in ``kernels`` must have launched, and each run's kernels of
+    ``expect`` exactly as often as its steps and evaluations need.
+    Returns the path's counts."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.fair import run_method
 
     ops.reset_launch_counts()
-    for name, steps, det, k, comm, expect in runs:
+    for run in runs:
         before = ops.launch_counts()
-        res = run_method(name, steps, det, image_hw=28, n_nodes=N_NODES,
-                         k_steps=k, retraction="polar_fused",
-                         eval_every=10, device="cuda", comm=comm)
+        res = run_method(run.name, run.steps, run.det, image_hw=28,
+                         n_nodes=N_NODES, k_steps=run.k,
+                         retraction=run.retraction, eval_every=10,
+                         device="cuda", comm=run.comm)
         torch.cuda.synchronize()
         after = ops.launch_counts()
         got = {n: after[n] - before[n] for n in after}
         last = res["curve"][-1]
-        tag = f"{label} {name} k={k}"
-        log(f"  {tag:22s} steps={steps:<3d} "
+        tag = f"{label} {run.name} k={run.k}" + (
+            "" if run.retraction == "polar_fused" else f" {run.retraction}")
+        log(f"  {tag:22s} steps={run.steps:<3d} "
             f"final loss={last['loss']:.6f} M_t={last['M_t']:.6f} "
             f"stiefel_residual={last['stiefel_residual']:.3e} "
             f"us_per_step={res['us_per_step']:.1f} "
             f"x_bits/param={res['x_bits_per_param_per_mix']:.3f} "
             f"launches={got}")
-        for point in res["curve"]:
-            if not all(math.isfinite(point[key]) for key in
-                       ("loss", "M_t", "consensus_x", "stiefel_residual")):
-                raise AssertionError(f"{tag}: non-finite {point}")
-            if point["stiefel_residual"] > 1e-4:
-                raise AssertionError(f"{tag}: Stiefel residual "
-                                     f"{point['stiefel_residual']:.3e}")
-        for kernel, per_step in expect.items():
-            if got[kernel] != per_step * steps:
+        _check_curve(tag, res["curve"])
+        evals = len(res["curve"])
+        for kernel, per_step in run.expect.items():
+            want = (per_step * run.steps + EVAL_LAUNCHES.get(kernel, 0)
+                    * evals + INIT_LAUNCHES.get(run.name, {}).get(kernel, 0))
+            if got[kernel] != want:
                 raise AssertionError(f"{tag}: {kernel} launched {got[kernel]} "
-                                     f"times, the steps need "
-                                     f"{per_step * steps}")
+                                     f"times, the init, steps and "
+                                     f"evaluations need {want}")
     counts = ops.launch_counts()
     missing = [n for n in kernels if counts[n] == 0]
     if missing:
@@ -664,18 +704,46 @@ def _run_path(label: str, runs, kernels) -> dict:
     return counts
 
 
+def _check_curve(tag: str, curve) -> None:
+    """Finite curve points, each on the manifold to 1e-4."""
+    for point in curve:
+        if not all(math.isfinite(point[key]) for key in
+                   ("loss", "M_t", "consensus_x", "stiefel_residual")):
+            raise AssertionError(f"{tag}: non-finite {point}")
+        if point["stiefel_residual"] > 1e-4:
+            raise AssertionError(f"{tag}: Stiefel residual "
+                                 f"{point['stiefel_residual']:.3e}")
+
+
+# a baseline step: every mix one hop, one grouped ring_mix call per mixed
+# tree (x, y, u, v; DM-HSGD mixes its estimators as u and v); the
+# projection back is plain products, so no stiefel_project (core/
+# baselines.py), no fused_retract and no multi_hop_mix
+BASELINE_STEP = {"ring_mix": 4, "stiefel_project": 0, "fused_retract": 0,
+                 "multi_hop_mix": 0}
+# a DRGDA step under the "polar" or "cayley" retraction (core/gda.py): the
+# gradient's projection, one grouped call for fc1 and head, then
+# descent_update's two single-leaf projections (alpha P_x(mx) and P_x(u))
+# on each of fc1 and head: 1 + 2 * 2 launches; the retraction itself is
+# plain products
+PLAIN_RETRACTION_STEP = {"ring_mix": 4, "stiefel_project": 5,
+                         "fused_retract": 0, "multi_hop_mix": 0}
+
+
 def main_path_phase() -> dict:
-    """The port's main paths through its entry point; returns each kernel's
-    launch count from the path it belongs to."""
+    """The port's main paths through its entry point; returns each
+    kernel's launch count from every path (full, int8, baselines)."""
     from repro_torch.launch.fair import COMM_PRESETS
 
     # per step: one grouped ring call for each mixed tree, x, y, u and v
     # (core/gda.py), with k hops for x, y and u and one hop for v
     full = _run_path("full", (
-        ("drgda", 30, True, 1, None, {"ring_mix": 4, "multi_hop_mix": 0}),
-        ("drsgda", 30, False, 1, None, {"ring_mix": 4, "multi_hop_mix": 0}),
-        ("drgda", 5, True, K_THEOREM1, None,
-         {"ring_mix": 1, "multi_hop_mix": 3})), FULL_PATH)
+        PathRun("drgda", 30, True, 1, None,
+                {"ring_mix": 4, "multi_hop_mix": 0}),
+        PathRun("drsgda", 30, False, 1, None,
+                {"ring_mix": 4, "multi_hop_mix": 0}),
+        PathRun("drgda", 5, True, K_THEOREM1, None,
+                {"ring_mix": 1, "multi_hop_mix": 3})), FULL_PATH)
     int8 = COMM_PRESETS["int8_ef"]
     int8_all = dataclasses.replace(int8, quant_hops="all")
     # per step: one grouped compressed first hop for each of the trees x,
@@ -684,16 +752,90 @@ def main_path_phase() -> dict:
     # for each of the trees x, y and u (v mixes with one hop).  The drop
     # channel mixes by einsum.
     ef = _run_path("int8", (
-        ("drgda", 30, True, 1, int8, {"quant_mix": 4, "ring_mix": 0,
-                                      "multi_hop_mix_quant": 0}),
-        ("drgda", 5, True, K_THEOREM1, int8_all,
-         {"quant_mix": 4, "ring_mix": 0, "multi_hop_mix_quant": 3,
-          "multi_hop_mix": 0}),
-        ("drgda", 10, True, 1, COMM_PRESETS["int8_ef_drop5"],
-         {"quant_mix": 0, "ring_mix": 0, "multi_hop_mix_quant": 0})),
+        PathRun("drgda", 30, True, 1, int8,
+                {"quant_mix": 4, "ring_mix": 0, "multi_hop_mix_quant": 0}),
+        PathRun("drgda", 5, True, K_THEOREM1, int8_all,
+                {"quant_mix": 4, "ring_mix": 0, "multi_hop_mix_quant": 3,
+                 "multi_hop_mix": 0}),
+        PathRun("drgda", 10, True, 1, COMM_PRESETS["int8_ef_drop5"],
+                {"quant_mix": 0, "ring_mix": 0, "multi_hop_mix_quant": 0})),
         INT8_PATH)
-    return {name: (full if name in FULL_PATH else ef)[name]
-            for name in KERNEL_META if name not in SERVE_PATH}
+    # the paper's baselines (GT-SRVR anchors at t = 0 and 16), one of them
+    # over EF-int8 gossip (one grouped first hop per tree), and DRGDA
+    # under the Cayley retraction
+    base = _run_path("baselines", (
+        PathRun("gt-gda", 30, True, 1, None, BASELINE_STEP),
+        PathRun("gnsd-a", 30, False, 1, None, BASELINE_STEP),
+        PathRun("dm-hsgd", 30, False, 1, None, BASELINE_STEP),
+        PathRun("gt-srvr", 30, False, 1, None, BASELINE_STEP),
+        PathRun("gt-srvr", 10, False, 1, int8,
+                {**BASELINE_STEP, "ring_mix": 0, "quant_mix": 4,
+                 "multi_hop_mix_quant": 0}),
+        PathRun("drgda", 10, True, 1, None, PLAIN_RETRACTION_STEP,
+                retraction="cayley")), BASELINE_PATH)
+    return {"full": full, "int8": ef, "baselines": base}
+
+
+def figures_phase() -> dict:
+    """Paper Figs. 1-2 on the card at the JAX package's settings (20-node
+    ring, 14x14 images, seed 0, 120 and 150 steps, evaluation every 10),
+    from its initial weights, held curve point by curve point against its
+    curves (``tests/data/fair_reference_curves.json``) under the gate the
+    file records for each point: taken from the JAX package's own spread
+    under a perturbation of its initial weights and the port's CPU gap;
+    points where the JAX package does not reproduce itself are reported,
+    not gated.  Returns the path's counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.fair import (compare_to_reference, load_reference,
+                                         run_reference_figures,
+                                         within_reference)
+
+    ref = load_reference(ROOT / "tests" / "data"
+                         / "fair_reference_curves.json")
+    s = ref["settings"]
+    ops.reset_launch_counts()
+    figs = run_reference_figures(ref, "cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    comparison = compare_to_reference(figs, ref)
+    steps = evals = riemannian_steps = inits = 0
+    for fig, runs in figs.items():
+        ref_runs = {r["method"]: r for r in ref["figures"][fig]}
+        for res in runs:
+            name = res["method"]
+            _check_curve(f"figures {name}", res["curve"])
+            steps += res["curve"][-1]["step"]
+            evals += len(res["curve"])
+            if name in INIT_LAUNCHES:
+                riemannian_steps += res["curve"][-1]["step"]
+                inits += INIT_LAUNCHES[name]["stiefel_project"]
+            last = ref_runs[name]["curve"][-1]
+            log(f"  {name:8s} steps={res['curve'][-1]['step']:<4d} final "
+                f"loss={res['final_loss']:.6f} (JAX {last['loss']:.6f}) "
+                f"M_t={res['final_M_t']:.6f} (JAX {last['M_t']:.6f}) "
+                f"us_per_step={res['us_per_step']:.1f}")
+            for key, c in comparison[name].items():
+                reported = ("" if c["reported"] is None else
+                            f"; after it, reported: {c['reported']:.3e}")
+                log(f"    {key:16s} largest gap {c['gated']:.3e} over the "
+                    f"gated points (through step {c['gated_through']})"
+                    f"{reported}; over the gate: {c['over'] or 'none'}")
+    # every step mixes x, y, u and v in one grouped ring call each; DRGDA
+    # and DRSGDA under "polar" project 5 times a step
+    # (PLAIN_RETRACTION_STEP) and once at init, the
+    # baselines never; each evaluation once
+    want = {"ring_mix": 4 * steps, "stiefel_project": 5 * riemannian_steps
+            + inits + evals, "fused_retract": 0, "multi_hop_mix": 0,
+            "quant_mix": 0}
+    if any(counts[n] != c for n, c in want.items()):
+        raise AssertionError(f"figures: launches {counts}, want {want}")
+    log(f"  {s['n_nodes']} nodes, {s['image_hw']}x{s['image_hw']} images, "
+        f"{steps} steps, {evals} curve points; launches {counts}")
+    if not within_reference(comparison):
+        raise AssertionError("figures: curve points outside the "
+                             "reference's gate (above)")
+    return counts
 
 
 def own_kernels() -> re.Pattern:
@@ -713,7 +855,7 @@ def own_kernels() -> re.Pattern:
 # launches of one optimizer step (no evaluation) in the profile phase: the
 # step's Stiefel leaves projected by one grouped call (the on-chip route),
 # and for EF-int8 one grouped first hop per tree with no ring_mix of the
-# hats
+# hats; a baseline step projects nothing (BASELINE_STEP)
 STEP_LAUNCHES = {
     "full k=1": {"stiefel_project": 1, "fused_retract": 2, "ring_mix": 4},
     "EF-int8 k=1": {"stiefel_project": 1, "fused_retract": 2,
@@ -722,55 +864,105 @@ STEP_LAUNCHES = {
                              "multi_hop_mix": 3},
     f"EF-int8 all k={K_THEOREM1}": {"stiefel_project": 1, "quant_mix": 4,
                                     "ring_mix": 0, "multi_hop_mix_quant": 3},
+    "gt-gda k=1": BASELINE_STEP,
+    "dm-hsgd k=1": BASELINE_STEP,
+    **{f"figures {name}": PLAIN_RETRACTION_STEP if name in ("drgda", "drsgda")
+       else BASELINE_STEP for name in ("drgda", "gt-gda", "drsgda", "gnsd-a",
+                                       "dm-hsgd", "gt-srvr")},
 }
 
 
-def profile_phase(comms: dict, steps: int = 10) -> None:
-    """Where a DRGDA main-path step spends its time, for each
-    ``label: (comm, k)`` of ``comms``: the step's wall time (median of
-    synchronized steps, as ``run_method`` times them), the device time of
-    its kernels under ``torch.profiler``, and the kernels that take the
-    most.
+class StepConfig(NamedTuple):
+    """A step to profile: method, full batch or minibatch, comms, gossip
+    steps, image size and retraction."""
+    name: str
+    det: bool
+    comm: object = None
+    k: int = 1
+    image_hw: int = 28
+    retraction: str = "polar_fused"
+
+
+def _device_kernels(prof, calls: int) -> list:
+    """(device us, launches, name) per kernel and call, device-side events
+    only: a CPU op's self device time repeats the time of the kernels it
+    launched."""
+    from torch.autograd import DeviceType
+    kernels = [(e.self_device_time_total / calls, e.count / calls, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(reverse=True)
+    return kernels
+
+
+def profile_phase(configs: dict, steps: int = 10) -> None:
+    """Where a main-path step spends its time, for each
+    ``label: StepConfig`` of ``configs``: the step's
+    wall time (median of synchronized steps, as ``run_method`` times them),
+    the device time of its kernels under ``torch.profiler``, and the kernels
+    that take the most.  A stochastic method steps on one minibatch.  For
+    the baselines also the projection back (``_project_back``, plain
+    Newton--Schulz products) alone: its wall, device time and launches, and
+    its share of the step's.
 
     Every wall time is taken before the first profiler session of the
     process, the configurations interleaved; the walls after the sessions
     are printed too, to show what a session leaves behind.
     """
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.convert import batch_to_torch
+    from repro_torch.core.baselines import ALL_BASELINES, _project_back
     from repro_torch.kernels import ops
     from repro_torch.launch.fair import prepare
 
     own = own_kernels()
-    runs, states = {}, {}
-    for label, (comm, k) in comms.items():
-        runs[label] = prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
-                              k_steps=k, device="cuda", comm=comm)
+    runs, states, batches = {}, {}, {}
+    for label, c in configs.items():
+        runs[label] = prepare(c.name, c.det, image_hw=c.image_hw,
+                              n_nodes=N_NODES, k_steps=c.k, device="cuda",
+                              comm=c.comm, retraction=c.retraction)
+        batches[label] = runs[label].full if c.det else batch_to_torch(
+            runs[label].stream.batch(1), runs[label].device)
         states[label] = runs[label].state
         for _ in range(3):
             states[label], _ = runs[label].opt.step(states[label],
-                                                    runs[label].full)
+                                                    batches[label])
 
-    def walls() -> dict:
-        step_us = {label: [] for label in comms}
+    def project(label):
+        run = runs[label]
+        return _project_back(run.problem.manifold_map, states[label].x,
+                             run.opt.hyper.invsqrt)
+
+    def walls() -> tuple[dict, dict]:
+        step_us = {label: [] for label in configs}
+        proj_us = {label: [] for label in configs
+                   if configs[label].name in ALL_BASELINES}
         for _ in range(2):
             for label, run in runs.items():
                 for _ in range(steps // 2):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    states[label], _ = run.opt.step(states[label], run.full)
+                    states[label], _ = run.opt.step(states[label],
+                                                    batches[label])
                     torch.cuda.synchronize()
                     step_us[label].append((time.perf_counter() - t0) * 1e6)
-        return step_us
+                    if label in proj_us:
+                        t0 = time.perf_counter()
+                        project(label)
+                        torch.cuda.synchronize()
+                        proj_us[label].append(
+                            (time.perf_counter() - t0) * 1e6)
+        return step_us, proj_us
 
-    before = walls()
+    before, proj_before = walls()
     for label, run in runs.items():
         ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
-                states[label], _ = run.opt.step(states[label], run.full)
+                states[label], _ = run.opt.step(states[label],
+                                                batches[label])
             torch.cuda.synchronize()
         per_step = {n: c / steps for n, c in ops.launch_counts().items()
                     if c}
@@ -778,57 +970,73 @@ def profile_phase(comms: dict, steps: int = 10) -> None:
         if any(per_step.get(n, 0) != c for n, c in want.items()):
             raise AssertionError(f"{label} step: launches {per_step}, want "
                                  f"{want}")
-        # device-side events only: a CPU op's self device time repeats the
-        # time of the kernels it launched
-        kernels = [(e.self_device_time_total / steps, e.count / steps, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        kernels.sort(reverse=True)
+        kernels = _device_kernels(prof, steps)
         device_us = sum(k[0] for k in kernels)
         launches = sum(k[1] for k in kernels)
         own_us = sum(k[0] for k in kernels if own.search(k[2]))
         step_us = before[label]
         wall_us = statistics.median(step_us)
-        log(f"  {label} drgda step: {wall_us:.1f} us wall without the "
-            f"profiler (median of {steps} synchronized steps; min "
-            f"{min(step_us):.1f}, max {max(step_us):.1f}); "
+        log(f"  {label} {configs[label].name} step: {wall_us:.1f} us wall "
+            f"without the profiler (median of {steps} synchronized steps; "
+            f"min {min(step_us):.1f}, max {max(step_us):.1f}); "
             f"{device_us:.1f} us of device time in {launches:.0f} kernels "
             f"(device busy {100 * device_us / wall_us:.1f}% of the wall); "
             f"the port's CUDA kernels {own_us:.1f} us; the port's launches "
             f"a step {per_step}")
         for us, count, key in kernels[:12]:
             log(f"    {us:9.1f} us/step  x{count:4.0f}  {key[:100]}")
-    after = walls()
+        if label in proj_before:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    project(label)
+                torch.cuda.synchronize()
+            proj = _device_kernels(prof, steps)
+            proj_dev = sum(k[0] for k in proj)
+            proj_wall = statistics.median(proj_before[label])
+            log(f"    projection back (fc1, head; Newton--Schulz, plain "
+                f"products): {proj_wall:.1f} us wall ({100 * proj_wall / wall_us:.1f}% "
+                f"of the step's), {proj_dev:.1f} us of device time in "
+                f"{sum(k[1] for k in proj):.0f} kernels "
+                f"({100 * proj_dev / device_us:.1f}% of the step's)")
+    after, _ = walls()
     log("  wall after the profiler sessions: " + ", ".join(
         f"{label} {statistics.median(us):.1f} us" for label, us
         in after.items()))
 
 
 def agreement_phase() -> None:
-    """Small DRGDA runs on the card (kernels) against the same runs on the
-    CPU (plain versions): per-step loss and final M_t.
+    """Small runs on the card (kernels) against the same runs on the CPU
+    (plain versions): per-step loss and M_t at every curve point.
 
-    Full precision: 1e-4 relative.  EF-int8 (k = 3, ``quant_hops="all"``):
-    both runs take one draw source that draws on the CPU, so they see the
-    same uniforms; but the card's convolutions round in another order (a
-    few 1e-7), which moves a stochastic rounding ``floor(x/scale + u)``
-    across an integer now and then, and error feedback carries that int8
-    step on.  So the two trajectories separate slowly, and are held to
-    1e-3 in loss and 5e-3 in M_t, relative where above 1 (the CPU tests
-    measure 1e-4 and 4e-4 between the port and the JAX package over 10
-    such steps)."""
+    Full precision (DRGDA at k = 3, GT-SRVR with q = 4 so that it anchors
+    at t = 0, 4 and 8, DRGDA under the Cayley retraction): 1e-4, relative
+    where the value is above 1.  EF-int8 (DRGDA, k = 3,
+    ``quant_hops="all"``): both runs take one draw source that draws on the
+    CPU, so they see the same uniforms; but the card's convolutions round
+    in another order (a few 1e-7), which moves a stochastic rounding
+    ``floor(x/scale + u)`` across an integer now and then, and error
+    feedback carries that int8 step on.  So the two trajectories separate
+    slowly, and are held to 1e-3 in loss and 5e-3 in M_t, relative where
+    above 1 (the CPU tests measure 1e-4 and 4e-4 between the port and the
+    JAX package over 10 such steps)."""
     from repro_torch.comms.compress import GeneratorDraws
     from repro_torch.comms.spec import CommSpec
+    from repro_torch.core.baselines import SRVRHyper
     from repro_torch.launch.fair import run_method
 
     kw = dict(image_hw=8, n_nodes=6, k_steps=3, eval_every=5)
     comm = CommSpec(compressor="int8", gamma=0.95, quant_hops="all")
-    for label, extra, tols in (
-            ("full precision", {}, {"loss": 1e-4, "M_t": 1e-4}),
-            ("EF-int8 quant_hops=all",
+    exact = {"loss": 1e-4, "M_t": 1e-4}
+    for label, name, det, extra, tols in (
+            ("full precision", "drgda", True, {}, exact),
+            ("q=4", "gt-srvr", False,
+             dict(hyper=SRVRHyper(beta=0.05, eta=0.2, q=4)), exact),
+            ("cayley", "drgda", True, dict(retraction="cayley"), exact),
+            ("EF-int8 quant_hops=all", "drgda", True,
              dict(comm=comm, draws=GeneratorDraws(0, on_cpu=True)),
              {"loss": 1e-3, "M_t": 5e-3})):
-        gpu, cpu = (run_method("drgda", 10, True, device=dev, **extra, **kw)
+        gpu, cpu = (run_method(name, 10, det, device=dev, **extra, **kw)
                     for dev in ("cuda", "cpu"))
         for a, b in zip(gpu["curve"], cpu["curve"]):
             for key, tol in tols.items():
@@ -836,7 +1044,7 @@ def agreement_phase() -> None:
                     raise AssertionError(
                         f"{label}: card vs CPU at step {a['step']}: {key} "
                         f"{a[key]} vs {b[key]}")
-        log(f"  card vs CPU, {label} (n=6, 8x8, k=3, 10 steps): final M_t "
+        log(f"  card vs CPU, {name} {label} (n=6, 8x8, 10 steps): final M_t "
             f"{gpu['final_M_t']:.6f} vs {cpu['final_M_t']:.6f}, "
             f"loss {gpu['final_loss']:.6f} vs {cpu['final_loss']:.6f}")
 
@@ -1387,27 +1595,45 @@ def main() -> int:
     rows = kernel_phase()
     rows.update(attention_kernel_phase())
     log("main path:")
-    counts = main_path_phase()
+    paths = main_path_phase()
+    log("figures:")
+    paths["figures"] = figures_phase()
     log("profile:")
     from repro_torch.launch.fair import COMM_PRESETS
-    profile_phase({"full k=1": (None, 1),
-                   "EF-int8 k=1": (COMM_PRESETS["int8_ef"], 1),
-                   f"full k={K_THEOREM1}": (None, K_THEOREM1),
-                   f"EF-int8 all k={K_THEOREM1}": (dataclasses.replace(
-                       COMM_PRESETS["int8_ef"], quant_hops="all"),
-                       K_THEOREM1)})
+    int8 = COMM_PRESETS["int8_ef"]
+    # the main paths at 28x28, then every method of Figs. 1-2 as the
+    # figures phase runs it (14x14, "polar")
+    profile_phase({
+        "full k=1": StepConfig("drgda", True),
+        "EF-int8 k=1": StepConfig("drgda", True, int8),
+        f"full k={K_THEOREM1}": StepConfig("drgda", True, k=K_THEOREM1),
+        f"EF-int8 all k={K_THEOREM1}": StepConfig(
+            "drgda", True, dataclasses.replace(int8, quant_hops="all"),
+            K_THEOREM1),
+        "gt-gda k=1": StepConfig("gt-gda", True),
+        "dm-hsgd k=1": StepConfig("dm-hsgd", False),
+        **{f"figures {name}": StepConfig(name, name in ("drgda", "gt-gda"),
+                                         image_hw=14, retraction="polar")
+           for name in ("drgda", "gt-gda", "drsgda", "gnsd-a", "dm-hsgd",
+                        "gt-srvr")}})
     log("agreement:")
     agreement_phase()
     # after the profile phase: its walls come before any profiler session
     log("serving path:")
-    counts.update(serve_phase())
+    paths["serving"] = serve_phase()
     serve_agreement_phase()
 
+    # each kernel's launches come from the path it belongs to; every path's
+    # counts stand beside them
+    home = {name: "full" if name in FULL_PATH else
+            "int8" if name in INT8_PATH else "serving"
+            for name in KERNEL_META}
     table = []
     for name, (source, replaces) in KERNEL_META.items():
         row = rows[name]
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": counts[name],
+                      "replaces": replaces,
+                      "launches": paths[home[name]][name],
                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                       "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],
@@ -1416,7 +1642,9 @@ def main() -> int:
                       "device_ms": row["device_ms"],
                       "library_device_ms": row["library_device_ms"],
                       "chain_ms": row["chain_ms"],
-                      "chain_device_ms": row["chain_device_ms"]})
+                      "chain_device_ms": row["chain_device_ms"],
+                      "path_launches": {path: counts.get(name, 0)
+                                        for path, counts in paths.items()}})
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

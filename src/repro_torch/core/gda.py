@@ -32,7 +32,7 @@ elastic mode are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -53,9 +53,11 @@ class GDAHyper:
     alpha: float = 0.5          # consensus step size
     beta: float = 0.01          # descent step size for x
     eta: float = 0.05           # ascent step size for y
-    # "polar" (paper default) | "qr" | "polar_fused" (the fused kernel);
-    # resolved per leaf, Euclidean leaves use their own update
+    # "polar" (paper default) | "qr" | "cayley" | "polar_fused" (the fused
+    # kernel); resolved per leaf, Euclidean leaves use their own update
     retraction: str = "polar"
+    invsqrt: str = "ns"         # "ns" (Newton-Schulz) | "eigh" (oracle)
+    k_override: Optional[int] = None  # gossip steps; None -> GossipSpec.k
 
 
 @dataclasses.dataclass
@@ -94,7 +96,8 @@ class DecentralizedGDA:
         self.gossip = gossip
         self.hyper = hyper
         check_retraction_name(hyper.retraction)
-        self.k = gossip.k
+        self.k = hyper.k_override if hyper.k_override is not None \
+            else gossip.k
         self.engine = maybe_engine(gossip, draws=draws)
 
     def init(self, x0: dict, y0: Tensor, batch0: Any) -> GDAState:
@@ -122,7 +125,9 @@ class DecentralizedGDA:
             if kind == m.fused_retraction:
                 return m.retract(x, h.alpha * mx - h.beta * u, kind)
             return m.descent_update(x, mx, u, alpha=h.alpha, beta=h.beta,
-                                    kind=kind)
+                                    kind=kind,
+                                    **({"method": h.invsqrt}
+                                       if kind == "polar" else {}))
 
         x_new = tree_map(leaf_update, self.problem.manifold_map,
                          state.x, mixed_x, state.u)
@@ -166,9 +171,6 @@ class DRSGDA(DecentralizedGDA):
     deterministic = False
 
 
-OPTIMIZERS = {"drgda": DRGDA, "drsgda": DRSGDA}
-
-
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
@@ -184,6 +186,7 @@ def _vmapped_loss_and_rgrads(problem: MinimaxProblem, x: dict, y: Tensor,
     return loss, rgx, gy
 
 
+# shared with the baselines (core/baselines.py)
 def _tree_mean_norm(tree) -> Tensor:
     sq = sum((leaf.reshape(leaf.shape[0], -1) ** 2).sum(-1)
              for leaf in tree_leaves(tree))

@@ -114,10 +114,6 @@ class Manifold:
 
 REGISTRY: dict[str, Manifold] = {}
 
-# retractions of the JAX package that this port has not brought over yet
-_NOT_PORTED = {"cayley": "the Cayley retraction is not ported yet; use "
-                         "'polar', 'polar_fused' or 'qr'"}
-
 
 def register(manifold: Manifold) -> Manifold:
     """Register a (stateless, shared) manifold instance under its name."""
@@ -143,8 +139,6 @@ def check_retraction_name(kind: str) -> str:
     """Raise on a retraction name NO registered geometry implements (per-leaf
     resolution falls back silently, so a typo would measure each leaf's
     default)."""
-    if kind in _NOT_PORTED:
-        raise ValueError(f"retraction {kind!r}: {_NOT_PORTED[kind]}")
     known = known_retractions()
     if kind not in known:
         raise ValueError(

@@ -11,11 +11,14 @@ Mirrors ``src/repro/geometry/stiefel.py``:
   * ``polar_fused``: projection + polar retraction of an AMBIENT direction
     in one kernel, ``ops.fused_retract``;
   * QR retraction       qf(x + u) with sign fix;
+  * Cayley retraction   (I - W/2)^{-1}(I + W/2) x with the Wen--Yin skew
+    W = W_hat - W_hat^T, W_hat = (I - x x^T/2) u x^T, by CG or Neumann
+    iterations with W applied in its low-rank form (plain tensor products:
+    the JAX package computes it outside any kernel);
   * induced arithmetic mean (IAM)  x_hat = P_St(mean_i x_i)  (Eq. 9).
 
 Every function works on tensors whose last two dims are (d, r); leading
-dims broadcast.  The Cayley retraction of the JAX package is not ported
-yet (``check_retraction_name`` says so).
+dims broadcast.
 """
 from __future__ import annotations
 
@@ -74,6 +77,66 @@ def retract_qr(x: Tensor, u: Tensor) -> Tensor:
     return q * d[..., None, :]
 
 
+def retract_cayley(x: Tensor, u: Tensor, iters: int = 12,
+                   solver: Literal["cg", "neumann"] = "cg") -> Tensor:
+    """Cayley retraction (Wen & Yin 2013), the JAX package's
+    ``retract_cayley``:
+
+        R_x(u) = (I - W/2)^{-1} (I + W/2) x,
+        W = W_hat - W_hat^T,   W_hat = (I - x x^T / 2) u x^T.
+
+    W is skew, so R_x(u) lands on St(d, r) for any ``u``.  W is never
+    formed: it is applied through (r, r) intermediates.
+
+    * ``solver="cg"``: CG on the normal equations
+      (I - W^2/4) z = (I + W + W^2/4) x, whose operator is SPD, with the
+      reference's guarded divisions (converged batch elements stay fixed);
+    * ``solver="neumann"``: the fixed point z <- (I + W/2) x + (W/2) z,
+      which converges for ||W|| < 2.
+    """
+    xtu = torch.einsum("...dr,...ds->...rs", x, u)
+
+    def wv(v: Tensor) -> Tensor:
+        # W v = u (x^T v) - x [ u^T v + 0.5 (x^T u)(x^T v)
+        #                               - 0.5 (x^T u)^T (x^T v) ]
+        xtv = torch.einsum("...dr,...ds->...rs", x, v)
+        utv = torch.einsum("...dr,...ds->...rs", u, v)
+        inner = utv + 0.5 * (torch.einsum("...rs,...st->...rt", xtu, xtv)
+                             - torch.einsum("...sr,...st->...rt", xtu, xtv))
+        return (torch.einsum("...dr,...rs->...ds", u, xtv)
+                - torch.einsum("...dr,...rs->...ds", x, inner))
+
+    if solver == "neumann":
+        b = x + 0.5 * wv(x)
+        z = b
+        for _ in range(iters):
+            z = b + 0.5 * wv(z)
+        return z
+
+    def a_op(v: Tensor) -> Tensor:               # (I - W^2/4) v, SPD
+        return v - 0.25 * wv(wv(v))
+
+    def dot(a: Tensor, b: Tensor) -> Tensor:
+        return (a * b).sum(dim=(-2, -1), keepdim=True)
+
+    wx = wv(x)
+    rhs = x + wx + 0.25 * wv(wx)                 # (I + W + W^2/4) x
+    z = x                                        # z ~ x for small steps
+    r = rhs - a_op(z)
+    p = r
+    rr = dot(r, r)
+    for _ in range(iters):
+        ap = a_op(p)
+        alpha = rr / dot(p, ap).clamp_min(1e-30)
+        z = z + alpha * p
+        r = r - alpha * ap
+        rr_new = dot(r, r)
+        beta = rr_new / rr.clamp_min(1e-30)
+        p = r + beta * p
+        rr = rr_new
+    return z
+
+
 def project_stiefel(a: Tensor, method: Literal["ns", "eigh"] = "ns") -> Tensor:
     """P_St(a): the polar factor of ``a`` (full column rank), a (a^T a)^{-1/2}."""
     ata = torch.einsum("...dr,...ds->...rs", a, a)
@@ -96,7 +159,7 @@ class Stiefel(Manifold):
     """St(d, r) over the last two dims; the paper's default geometry."""
 
     name = "stiefel"
-    retractions = ("polar", "qr", "polar_fused")
+    retractions = ("polar", "qr", "cayley", "polar_fused")
     default_retraction = "polar"
     fused_retraction = "polar_fused"
 
@@ -108,12 +171,16 @@ class Stiefel(Manifold):
         return ops.stiefel_project_leaves(xs, gs)
 
     def retract(self, x: Tensor, u: Tensor, kind: Optional[str] = None,
-                *, method: str = "ns", **kw) -> Tensor:
+                *, method: str = "ns", iters: Optional[int] = None,
+                solver: str = "cg", **kw) -> Tensor:
         kind = kind or self.default_retraction
         if kind == "polar":
             return retract_polar(x, u, method=method)
         if kind == "qr":
             return retract_qr(x, u)
+        if kind == "cayley":
+            return retract_cayley(x, u, solver=solver,
+                                  **({"iters": iters} if iters else {}))
         if kind == "polar_fused":
             # ``u`` is the AMBIENT update direction; the kernel projects it
             return ops.fused_retract(x, u, **kw)

@@ -42,6 +42,7 @@ from repro.data.synthetic import ClassificationStream as JStream  # noqa: E402
 from repro.objectives import fair as jfair  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.comms.spec import CommSpec  # noqa: E402
+from repro_torch.core import OPTIMIZERS  # noqa: E402
 from repro_torch.core import gda as tgda  # noqa: E402
 from repro_torch.core.gossip import GossipSpec  # noqa: E402
 from repro_torch.core.metric import convergence_metric  # noqa: E402
@@ -167,7 +168,7 @@ def test_trajectory_matches_reference(setup, method, retraction):
     jprob, tprob = jfair.make_fair_problem(params), fair.make_fair_problem({})
     jopt = J_OPTIMIZERS[method](jprob, JSpec(n_nodes=N, k_steps=k),
                                 jgda.GDAHyper(**hyper))
-    topt = tgda.OPTIMIZERS[method](tprob, GossipSpec(n_nodes=N, k_steps=k),
+    topt = OPTIMIZERS[method](tprob, GossipSpec(n_nodes=N, k_steps=k),
                                    tgda.GDAHyper(**hyper))
     x0 = jgda.broadcast_to_nodes(params, N)
     full = stream.full(2)
@@ -287,10 +288,15 @@ def test_run_method_on_the_cpu():
     for p in res["curve"]:
         assert np.isfinite([p["loss"], p["M_t"]]).all()
         assert p["stiefel_residual"] < 1e-4
-    with pytest.raises(ValueError, match="ported"):
-        run_method("gt-gda", 1, True, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        run_method("drgda", 1, True, retraction="cayley", device="cpu")
+    # the baselines and the Cayley retraction run; an unknown name raises
+    for name, retraction in (("gt-gda", "polar"), ("drgda", "cayley")):
+        res = run_method(name, 1, True, image_hw=8, n_nodes=3,
+                         retraction=retraction, device="cpu")
+        assert np.isfinite(res["final_M_t"]) and res["k"] == 1
+    with pytest.raises(ValueError, match="unknown method"):
+        run_method("gt-gdaa", 1, True, device="cpu")
+    with pytest.raises(ValueError, match="unknown retraction"):
+        run_method("drgda", 1, True, retraction="cayly", device="cpu")
 
 
 _INT8_ALL = dataclasses.replace(COMM_PRESETS["int8_ef"], quant_hops="all")

@@ -3,7 +3,9 @@
 
 Tolerances: 1e-6 absolute for the projections and retractions at unit
 scale (fp32 products summed in another order); the retraction axioms use
-the JAX package's own bounds (``tests/test_geometry.py``).  Ring mixes are
+the JAX package's own bounds (``tests/test_geometry.py``).  A DRGDA
+trajectory under the Cayley retraction holds 1e-5 over 10 steps, as the
+polar ones do in ``tests/test_torch_fair.py``.  Ring mixes are
 bitwise against the JAX package's eager ring expression; the JAX
 ``mix_ring`` runs under ``jit``, where XLA:CPU contracts each hop into one
 FMA, so against it they hold to ``steps * eps32 * max|x|`` (the hop is
@@ -101,6 +103,7 @@ def test_feasible_init_matches_reference():
 
 @pytest.mark.parametrize("name,kind", [("stiefel", "polar"),
                                        ("stiefel", "qr"),
+                                       ("stiefel", "cayley"),
                                        ("euclidean", "add")])
 def test_retraction_axioms(name, kind):
     """R_x(0) = x, R_x(u) feasible, R_x(tu) = x + tu + O(t^2)."""
@@ -136,13 +139,85 @@ def test_polar_fused_equals_descent_update_at_the_leaf():
 
 def test_retraction_names():
     assert G.check_retraction_name("polar_fused") == "polar_fused"
-    with pytest.raises(ValueError, match="not ported"):
-        G.check_retraction_name("cayley")
+    # every retraction of the JAX package's Stiefel geometry runs
+    assert G.check_retraction_name("cayley") == "cayley"
+    assert set(G.get("stiefel").retractions) == set(
+        jst.Stiefel.retractions)
     with pytest.raises(ValueError, match="unknown retraction"):
         G.check_retraction_name("polr")
     mm = G.as_manifold_map({"a": "stiefel", "b": G.get("euclidean")})
     assert mm["a"].name == "stiefel" and mm["b"].name == "euclidean"
     assert mm["b"].resolve_retraction("polar_fused") == "add"
+
+
+@pytest.mark.parametrize("solver", ["cg", "neumann"])
+def test_retract_cayley_matches_reference(solver):
+    """W applied in its low-rank form, CG or Neumann: the JAX package's
+    ``retract_cayley`` to 1e-6 at (4, 16, 5), and on St(d, r) to 1e-5."""
+    rng = np.random.default_rng(5)
+    x = _stiefel(rng, (4, 16, 5))
+    u = np.asarray(jst.tangent_project(
+        jnp.asarray(x), jnp.asarray(rng.normal(size=x.shape), jnp.float32)))
+    u = (0.3 * u / np.linalg.norm(u, axis=(-2, -1), keepdims=True)
+         ).astype(np.float32)
+    for iters in (None, 4):
+        kw = {"iters": iters} if iters else {}
+        got = tst.retract_cayley(_t(x), _t(u), solver=solver, **kw)
+        want = np.asarray(jst.retract_cayley(jnp.asarray(x), jnp.asarray(u),
+                                             solver=solver, **kw))
+        np.testing.assert_allclose(_np(got), want, atol=1e-6)
+        via = G.get("stiefel").retract(_t(x), _t(u), "cayley", solver=solver,
+                                       iters=iters)
+        np.testing.assert_array_equal(_np(via), _np(got))
+    assert float(tst.stiefel_error(got).max()) <= 1e-5
+
+
+def test_drgda_cayley_trajectory_matches_reference():
+    """DRGDA with ``retraction="cayley"`` over 10 steps on the fair CNN
+    (n = 4, 8x8 images): loss, every x leaf and y within 1e-5 of the JAX
+    package, the final M_t within 1e-5 relative."""
+    from repro.core import OPTIMIZERS as J_OPTIMIZERS
+    from repro.core import gda as jgda
+    from repro.core.metric import convergence_metric as j_metric
+    from repro.data.synthetic import ClassificationStream
+    from repro.objectives import fair as jfair
+    from repro_torch import convert
+    from repro_torch.core import OPTIMIZERS
+    from repro_torch.core.gda import GDAHyper
+    from repro_torch.core.metric import convergence_metric
+    from repro_torch.objectives import fair
+
+    n = 4
+    params = jfair.init_cnn(jax.random.PRNGKey(0), image_hw=8, fc=16)
+    full = ClassificationStream(n_nodes=n, batch_per_node=8, image_hw=8,
+                                seed=0).full(2)
+    jfull = {k: jnp.asarray(v) for k, v in full.items()}
+    tfull = convert.batch_to_torch(full, "cpu")
+    hyper = dict(alpha=0.5, beta=0.05, eta=0.2, retraction="cayley")
+    jprob, tprob = jfair.make_fair_problem(params), fair.make_fair_problem({})
+    jopt = J_OPTIMIZERS["drgda"](jprob, jg.GossipSpec(n_nodes=n, k_steps=1),
+                                 jgda.GDAHyper(**hyper))
+    topt = OPTIMIZERS["drgda"](tprob, tg.GossipSpec(n_nodes=n, k_steps=1),
+                               GDAHyper(**hyper))
+    x0 = jgda.broadcast_to_nodes(params, n)
+    js = jopt.init(x0, jnp.full((n, 3), 1.0 / 3.0), jfull)
+    ts = topt.init(convert.params_from_reference(x0, "cpu"),
+                   torch.full((n, 3), 1.0 / 3.0), tfull)
+    step = jax.jit(jopt.step)
+    for t in range(10):
+        js, jm = step(js, jfull)
+        ts, tm = topt.step(ts, tfull)
+        assert abs(float(tm.loss) - float(jm.loss)) <= 1e-5, t
+        tx = convert.params_to_reference(ts.x)
+        for key in tx:
+            np.testing.assert_allclose(tx[key], np.asarray(js.x[key]),
+                                       atol=1e-5)
+        np.testing.assert_allclose(_np(ts.y), np.asarray(js.y), atol=1e-5)
+    want = float(jax.jit(lambda x, y: j_metric(jprob, x, y, jfull))(
+        js.x, js.y)["M_t"])
+    got = convergence_metric(tprob, ts.x, ts.y, tfull)
+    assert abs(float(got["M_t"]) - want) <= 1e-5 * want
+    assert float(got["stiefel_residual"]) <= 1e-5
 
 
 def test_project_simplex_matches_reference():
