@@ -46,6 +46,11 @@
    to 288, one empty) and at 64 slots of 2048 tokens (no PyTorch call
    gathers through a block table).  Query rows without keys and empty
    slots must be exact zeros.
+   Then the geometries: Grassmann (polar and QR), oblique, sphere and a
+   Product of all five on node-stacked (20, 784, 64) and (20, 20, 3) inputs
+   from a seed, every op on the card against the CPU (1e-5 relative; dist
+   1e-4 absolute) and the axioms on the card (R_x(0) = x to 1e-5, check
+   < 1e-5 after a step).
 4. Main path, three paths, each with the launch counts set to 0 just
    before it and read just after:
    * full precision: DRGDA (full batch, polar_fused) and DRSGDA (minibatch)
@@ -70,10 +75,28 @@
    steps) from its initial weights, every curve point held against its
    curves (``tests/data/fair_reference_curves.json``) within the gate the
    file records for it, where the JAX package reproduces itself, and the
-   gap reported where it does not, with the launches of the whole run.  Then a profile of a
+   gap reported where it does not, with the launches of the whole run.
+   Then robust PCA on the Grassmann manifold
+   (``repro_torch.launch.robust_pca``): the example's run (Gr(20, 3), 8
+   nodes, 800 steps) from the JAX package's data and initial basis, held
+   against its curve and Phi under the gates
+   ``tests/data/robust_pca_reference.json`` records, with the example's
+   four checks; the full-width run (Gr(784, 64), 20 nodes, 256 samples a
+   node, 100 steps), finite, feasible and its loss falling; and the full
+   width for 5 steps on
+   the card against the CPU (1e-4 relative in loss and M_t).  Then the DRO
+   experiment (``repro_torch.launch.dro``: DRSGDA, GNSD-A, DM-HSGD at the
+   settings of ``benchmarks/dro.py``) from the JAX package's initial
+   weights, held against ``tests/data/dro_reference_curves.json``.  Every
+   robust-PCA and DRO run's launches are asserted: no stiefel_project and
+   no fused_retract in a robust-PCA step, one grouped ring_mix call per
+   mixed tree (the example at the ring's Theorem-1 k = 8: one ring_mix and
+   three multi_hop_mix), 5 projections a DRSGDA step.  Then a profile of a
    DRGDA k = 1 step, an EF-int8 k = 1 step, a DRGDA k = 67 step, an EF-int8
    quant_hops="all" k = 67 step, a GT-GDA step and a DM-HSGD step, and a
-   step of each of the six methods as the figures phase runs it (wall
+   step of each of the six methods as the figures phase runs it, a
+   robust-PCA step at the example's size and at full width, and a DRO
+   DRSGDA step (wall
    time, device time and busy share, the kernels that take the most, and
    the port's launches a step: one stiefel_project launch, for EF-int8 four
    quant_mix and no ring_mix, for the baselines four ring_mix and no
@@ -838,6 +861,310 @@ def figures_phase() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the other geometries, robust PCA and DRO
+# ---------------------------------------------------------------------------
+
+GEOMETRY_SHAPES = [(N_NODES, 784, 64), (N_NODES, 20, 3)]
+GEOMETRY_CASES = [("grassmann", "polar"), ("grassmann", "qr"),
+                  ("oblique", "normalize"), ("sphere", "normalize")]
+GEOMETRY_REL = 1e-5
+# dist: principal angles (Grassmann) and great-circle angles, absolute, at
+# the CPU tests' tolerance (tests/test_torch_geometries.py)
+GEOMETRY_DIST_ABS = 1e-4
+
+
+def geometry_phase() -> None:
+    """Grassmann (polar and QR retractions), oblique, sphere and a Product
+    of all five geometries on node-stacked inputs from a seed:
+    tangent_project, retract, project, consensus_mean, dist and check on the
+    card against the same calls on the CPU (1e-5 relative to the largest
+    value; dist 1e-4 absolute), and the axioms on the card: R_x(0) = x to
+    1e-5, and check < 1e-5 after a step."""
+    import torch
+    from repro_torch import geometry as G
+
+    def rel(tag, got, want):
+        if isinstance(want, dict):
+            return max(rel(f"{tag} {k}", got[k], want[k]) for k in want)
+        err = float((got.cpu() - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-30)
+        if err > GEOMETRY_REL * scale:
+            raise AssertionError(f"geometry {tag}: card vs CPU "
+                                 f"{err:.3e} (scale {scale:.3e})")
+        return err / scale
+
+    def one(m, kind, x, y, g, tag):
+        """Every op of ``m`` on the card against the CPU; returns the
+        largest relative gap and the dist gap."""
+        xc, yc, gc = (_leafwise(lambda t: t.cuda(), t) for t in (x, y, g))
+        gaps = []
+        u = m.tangent_project(x, g)
+        gaps.append(rel(f"{tag} tangent_project",
+                        m.tangent_project(xc, gc), u))
+        step = _scaled(u, 0.3)
+        stepc = _scaled(m.tangent_project(xc, gc), 0.3)
+        gaps.append(rel(f"{tag} retract {kind}", m.retract(xc, stepc, kind),
+                        m.retract(x, step, kind)))
+        a = _leafwise(lambda xi, gi: xi + 0.05 * gi, x, g)
+        ac = _leafwise(lambda xi, gi: xi + 0.05 * gi, xc, gc)
+        gaps.append(rel(f"{tag} project", m.project(ac), m.project(a)))
+        gaps.append(rel(f"{tag} consensus_mean", m.consensus_mean(ac),
+                        m.consensus_mean(a)))
+        gaps.append(rel(f"{tag} check", m.check(ac), m.check(a)))
+        dist_gap = float((m.dist(xc, yc).cpu() - m.dist(x, y)).abs().max())
+        if dist_gap > GEOMETRY_DIST_ABS:
+            raise AssertionError(f"geometry {tag}: dist card vs CPU "
+                                 f"{dist_gap:.3e}")
+        r0 = m.retract(xc, _leafwise(torch.zeros_like, xc), kind)
+        at_zero = float(_leafwise_max(lambda a, b: (a - b).abs().max(),
+                                      r0, xc))
+        after = float(m.check(m.retract(xc, stepc, kind)).max())
+        if at_zero > 1e-5 or after > 1e-5:
+            raise AssertionError(f"geometry {tag}: R_x(0) - x {at_zero:.3e}"
+                                 f", check after a step {after:.3e}")
+        log(f"  {tag:36s} card vs CPU: largest relative gap "
+            f"{max(gaps):.3e}, dist {dist_gap:.3e}; R_x(0) - x "
+            f"{at_zero:.3e}, check after a step {after:.3e}")
+
+    gen = torch.Generator().manual_seed(0)
+    for name, kind in GEOMETRY_CASES:
+        m = G.get(name)
+        for shape in GEOMETRY_SHAPES:
+            x, y = (m.rand(*shape[1:], shape[:1], generator=gen,
+                           device="cpu") for _ in range(2))
+            g = torch.randn(shape, generator=gen)
+            one(m, kind, x, y, g, f"{name} {kind} {shape}")
+    spec = {"g": "grassmann", "o": "oblique", "s": "sphere", "w": "stiefel",
+            "e": "euclidean"}
+    pm = G.Product(spec)
+    big, small = GEOMETRY_SHAPES
+    like = {"g": big, "o": small, "s": big, "w": big, "e": small}
+    x, y = (pm.rand({k: torch.empty(v) for k, v in like.items()},
+                    generator=gen, device="cpu") for _ in range(2))
+    g = {k: torch.randn(v, generator=gen) for k, v in like.items()}
+    for kind in ("polar", "qr"):
+        one(pm, kind, x, y, g, f"product of five {kind}")
+
+
+def _leafwise(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _leafwise_max(fn, *trees):
+    import torch
+    if isinstance(trees[0], dict):
+        return torch.stack([fn(*(t[k] for t in trees))
+                            for k in trees[0]]).max()
+    return fn(*trees)
+
+
+def _scaled(u, norm):
+    """Each node's tangent step scaled to Frobenius norm ``norm`` (a tree:
+    leaf by leaf)."""
+    return _leafwise(lambda ui: norm * ui / ui.flatten(1).norm(dim=1)
+                     .clamp_min(1e-9).view(-1, *[1] * (ui.ndim - 1)), u)
+
+
+# a robust-PCA DRGDA step (core/gda.py; geometry/grassmann.py): the
+# Grassmann projection is plain products (no symmetrization, not the
+# Stiefel kernel), so no stiefel_project; Grassmann has no fused retraction;
+# the metric projects by the same plain products.  Mixes: the full-width
+# run gossips once a step on the 20-node ring (k = 1): one grouped ring
+# call for each of x, y, u and v.  The example gossips at the ring's
+# Theorem-1 steps, as examples/robust_pca.py does (GossipSpec's default,
+# k = 8 for 8 nodes): x, y and u with one grouped multi-hop call each,
+# v with one ring hop.
+PCA_FULL_STEP = {"ring_mix": 4, "multi_hop_mix": 0, "stiefel_project": 0,
+                 "fused_retract": 0}
+PCA_EXAMPLE_STEP = {"ring_mix": 1, "multi_hop_mix": 3, "stiefel_project": 0,
+                    "fused_retract": 0}
+PCA_AGREE_REL = 1e-4
+
+
+def _launched(before: dict) -> dict:
+    from repro_torch.kernels import ops
+    return {n: c - before[n] for n, c in ops.launch_counts().items()}
+
+
+def _check_launches(tag: str, got: dict, want: dict) -> None:
+    if any(got[n] != c for n, c in want.items()):
+        raise AssertionError(f"{tag}: launches {got}, want {want}")
+
+
+def robust_pca_phase() -> dict:
+    """Robust PCA on the Grassmann manifold through
+    ``repro_torch.launch.robust_pca``:
+
+    1. the example's run (Gr(20, 3), 8 nodes, 800 steps) from the JAX
+       package's data, planted basis and initial basis
+       (``tests/data/robust_pca_reference.json``), every curve point and
+       Phi held against its run under the gates the file records, and the
+       example's four checks;
+    2. the full-width run, Gr(784, 64) on the 20-node ring with 256 samples
+       a node, 100 steps: every point finite, feasible to 1e-4, the loss
+       lower at every curve point than at the one before;
+    3. the full-width run for 5 steps on the card and on the CPU: loss and
+       M_t at every step within 1e-4 relative.
+
+    The launches of each run are asserted (PCA_EXAMPLE_STEP,
+    PCA_FULL_STEP; init and evaluations launch nothing).  Returns the
+    counts of runs 1 and 2."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import robust_pca as rp
+
+    ref = rp.load_reference(ROOT / "tests" / "data"
+                            / "robust_pca_reference.json")
+    ops.reset_launch_counts()
+    before = ops.launch_counts()
+    res = rp.run_reference(ref, "cuda")
+    torch.cuda.synchronize()
+    _check_launches("robust PCA example", _launched(before),
+                    {n: c * res["steps"] for n, c in
+                     PCA_EXAMPLE_STEP.items()})
+    comparison = rp.compare_to_reference(res, ref)
+    last, want = res["curve"][-1], ref["curve"][-1]
+    log(f"  example Gr(20, 3) n=8 k={res['k']} steps={res['steps']}: final "
+        f"loss={last['loss']:.6f} (JAX {want['loss']:.6f}) "
+        f"M_t={last['M_t']:.4e} (JAX {want['M_t']:.4e}) "
+        f"angle={last['angle']:.4f} (JAX {want['angle']:.4f}) "
+        f"residual={last['stiefel_residual']:.3e}; Phi DRGDA "
+        f"{res['phi']['drgda']:.6f} (JAX {ref['phi']['drgda']:.6f}) PCA "
+        f"{res['phi']['pca']:.6f} (JAX {ref['phi']['pca']:.6f}); "
+        f"us_per_step={res['us_per_step']:.1f}; launches a step "
+        f"{ {n: c for n, c in res['launches_per_step'].items() if c} }")
+    for q, v in comparison["curve"]["drgda"].items():
+        log(f"    {q:16s} largest gap {v['gated']:.3e} over the gated "
+            f"points (through step {v['gated_through']}); over the gate: "
+            f"{v['over'] or 'none'}")
+    for name, c in comparison["phi"].items():
+        log(f"    Phi {name:12s} gap {c['gap']:.3e} (gate {c['gate']:.1e})")
+    if not rp.within_reference(comparison):
+        raise AssertionError("robust PCA example: outside the reference's "
+                             "gates (above)")
+    failed = [name for name, ok in res["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"robust PCA example: checks failed {failed}")
+    log(f"    the example's checks hold: {', '.join(res['checks'])}")
+
+    before = ops.launch_counts()
+    full = rp.run("full", device="cuda")
+    torch.cuda.synchronize()
+    _check_launches("robust PCA full width", _launched(before),
+                    {n: c * full["steps"] for n, c in PCA_FULL_STEP.items()})
+    for p in full["curve"]:
+        if not all(math.isfinite(p[k]) for k in ("loss", "M_t",
+                                                 "consensus_x", "angle")):
+            raise AssertionError(f"robust PCA full width: non-finite {p}")
+        if p["stiefel_residual"] > 1e-4:
+            raise AssertionError(f"robust PCA full width: residual {p}")
+    # progress: the loss falls from one curve point to the next.  M_t does
+    # not fall in 100 steps: the random start is near a saddle, where the
+    # gradient is small and grows as x leaves it (on the CPU, M_t rises
+    # from 0.0602 after step 1 to 0.0915 at step 500 and is below 0.0602
+    # again only at step 1500)
+    losses = [p["loss"] for p in full["curve"]]
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"robust PCA full width: the loss does not "
+                             f"fall at every curve point: {losses}")
+    first, last = full["curve"][0], full["curve"][-1]
+    log(f"  full width Gr(784, 64) n=20 m=256 k={full['k']} "
+        f"steps={full['steps']}: M_t {first['M_t']:.4e} after step 1 -> "
+        f"{last['M_t']:.4e}, loss {first['loss']:.6f} -> "
+        f"{last['loss']:.6f}, angle {last['angle']:.4f}, residual "
+        f"{last['stiefel_residual']:.3e}, Phi DRGDA "
+        f"{full['phi']['drgda']:.6f} PCA {full['phi']['pca']:.6f}; "
+        f"us_per_step={full['us_per_step']:.1f}; launches a step "
+        f"{ {n: c for n, c in full['launches_per_step'].items() if c} }")
+    counts = ops.launch_counts()
+
+    gpu, cpu = (rp.run("full", steps=5, eval_every=1, device=dev)
+                for dev in ("cuda", "cpu"))
+    worst = 0.0
+    for a, b in zip(gpu["curve"], cpu["curve"]):
+        for key in ("loss", "M_t"):
+            gap = abs(a[key] - b[key]) / abs(b[key])
+            worst = max(worst, gap)
+            if gap > PCA_AGREE_REL:
+                raise AssertionError(f"robust PCA full width, card vs CPU "
+                                     f"at step {a['step']}: {key} {a[key]} "
+                                     f"vs {b[key]}")
+    log(f"  full width, 5 steps, card vs CPU: largest relative gap in loss "
+        f"and M_t {worst:.3e} (gate {PCA_AGREE_REL:g}); final M_t "
+        f"{gpu['curve'][-1]['M_t']:.6f} vs {cpu['curve'][-1]['M_t']:.6f}")
+    return counts
+
+
+def dro_phase() -> dict:
+    """The DRO experiment (``benchmarks/dro.py``) through
+    ``repro_torch.launch.dro`` at the reference's settings (20-node ring,
+    14x14 images, ``hetero=0.9``, 120 / 120 / 60 steps) from the JAX
+    package's initial weights, every curve point held against its curves
+    (``tests/data/dro_reference_curves.json``) under the gate the file
+    records (reported, not gated, where the JAX package does not reproduce
+    itself), each point's Stiefel residual to 1e-4, and the launches of each
+    method asserted.  Returns the path's counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dro
+    from repro_torch.launch.fair import within_reference
+
+    ref = dro.load_reference(ROOT / "tests" / "data"
+                             / "dro_reference_curves.json")
+    s = ref["settings"]
+    ops.reset_launch_counts()
+    runs = []
+    for name, steps in s["methods"].items():
+        before = ops.launch_counts()
+        res = dro.run_method(name, steps, seed=s["seed"], device="cuda",
+                             params=ref["init_params"])
+        torch.cuda.synchronize()
+        evals = len(res["curve"])
+        # DRSGDA under "polar": 5 projections a step and one at init
+        # (PLAIN_RETRACTION_STEP, INIT_LAUNCHES); the baselines none; every
+        # evaluation one (EVAL_LAUNCHES); one grouped ring call per mixed
+        # tree a step
+        per_step = PLAIN_RETRACTION_STEP if name == "drsgda" \
+            else BASELINE_STEP
+        want = {n: c * steps for n, c in per_step.items()}
+        want["stiefel_project"] += (
+            EVAL_LAUNCHES["stiefel_project"] * evals
+            + INIT_LAUNCHES.get(name, {}).get("stiefel_project", 0))
+        got = _launched(before)
+        _check_launches(f"dro {name}", got, want)
+        for p in res["curve"]:
+            if not all(math.isfinite(p[k]) for k in (
+                    "loss", "M_t", "worst_group_weight")) \
+                    or p["stiefel_residual"] > 1e-4:
+                raise AssertionError(f"dro {name}: point {p}")
+        runs.append(res)
+    comparison = dro.compare_to_reference({"dro": runs}, ref)
+    for res in runs:
+        name, last = res["method"], res["curve"][-1]
+        c = comparison[name]
+        gated = max(v["gated"] for v in c.values() if v["gated"] is not None)
+        log(f"  {name:8s} steps={last['step']:<4d} final loss="
+            f"{last['loss']:.6f} M_t={last['M_t']:.6f} worst_group_weight="
+            f"{last['worst_group_weight']:.6f} residual="
+            f"{last['stiefel_residual']:.3e}; largest gated gap {gated:.3e}; "
+            f"us_per_step={res['us_per_step']:.1f}")
+        for key, v in c.items():
+            reported = ("" if v["reported"] is None else
+                        f"; after it, reported: {v['reported']:.3e}")
+            log(f"    {key:18s} largest gap {v['gated']:.3e} over the gated "
+                f"points (through step {v['gated_through']}){reported}; "
+                f"over the gate: {v['over'] or 'none'}")
+    if not within_reference(comparison):
+        raise AssertionError("dro: curve points outside the reference's "
+                             "gate (above)")
+    counts = ops.launch_counts()
+    log(f"  launches {counts}")
+    return counts
+
+
 def own_kernels() -> re.Pattern:
     """A pattern that finds, in a profiler event's name, any ``__global__``
     function of the port's CUDA sources: every kernel the port can launch,
@@ -869,18 +1196,45 @@ STEP_LAUNCHES = {
     **{f"figures {name}": PLAIN_RETRACTION_STEP if name in ("drgda", "drsgda")
        else BASELINE_STEP for name in ("drgda", "gt-gda", "drsgda", "gnsd-a",
                                        "dm-hsgd", "gt-srvr")},
+    "robust PCA example": PCA_EXAMPLE_STEP,
+    "robust PCA full width": PCA_FULL_STEP,
+    "DRO drsgda": PLAIN_RETRACTION_STEP,
 }
 
 
 class StepConfig(NamedTuple):
     """A step to profile: method, full batch or minibatch, comms, gossip
-    steps, image size and retraction."""
+    steps, image size and retraction; or ``setup``, a function that returns
+    the initialized run (``launch.fair.Run``) of another problem."""
     name: str
     det: bool
     comm: object = None
     k: int = 1
     image_hw: int = 28
     retraction: str = "polar_fused"
+    setup: object = None
+
+
+def _dro_setup():
+    """DRSGDA on the DRO problem as the DRO phase runs it (14x14,
+    ``hetero=0.9``, ``"polar"``)."""
+    from repro_torch.data.synthetic import ClassificationStream
+    from repro_torch.launch import dro
+    from repro_torch.launch.fair import prepare
+    from repro_torch.objectives.fair import make_dro_problem
+
+    stream = ClassificationStream(n_nodes=N_NODES,
+                                  batch_per_node=dro.BATCH_PER_NODE,
+                                  hetero=dro.HETERO, seed=0)
+    return prepare("drsgda", False, hyper=dro.hyper("drsgda"),
+                   device="cuda", problem=make_dro_problem, stream=stream)
+
+
+def _robust_pca_setup(size: str):
+    """A robust-PCA run at ``size`` (``launch.robust_pca.SIZES``),
+    initialized."""
+    from repro_torch.launch import robust_pca
+    return lambda: robust_pca.prepare(size, device="cuda")[0]
 
 
 def _device_kernels(prof, calls: int) -> list:
@@ -919,9 +1273,9 @@ def profile_phase(configs: dict, steps: int = 10) -> None:
     own = own_kernels()
     runs, states, batches = {}, {}, {}
     for label, c in configs.items():
-        runs[label] = prepare(c.name, c.det, image_hw=c.image_hw,
-                              n_nodes=N_NODES, k_steps=c.k, device="cuda",
-                              comm=c.comm, retraction=c.retraction)
+        runs[label] = c.setup() if c.setup is not None else prepare(
+            c.name, c.det, image_hw=c.image_hw, n_nodes=N_NODES, k_steps=c.k,
+            device="cuda", comm=c.comm, retraction=c.retraction)
         batches[label] = runs[label].full if c.det else batch_to_torch(
             runs[label].stream.batch(1), runs[label].device)
         states[label] = runs[label].state
@@ -1594,10 +1948,16 @@ def main() -> int:
     log("kernel phase:")
     rows = kernel_phase()
     rows.update(attention_kernel_phase())
+    log("geometries:")
+    geometry_phase()
     log("main path:")
     paths = main_path_phase()
     log("figures:")
     paths["figures"] = figures_phase()
+    log("robust PCA:")
+    paths["robust_pca"] = robust_pca_phase()
+    log("DRO:")
+    paths["dro"] = dro_phase()
     log("profile:")
     from repro_torch.launch.fair import COMM_PRESETS
     int8 = COMM_PRESETS["int8_ef"]
@@ -1615,7 +1975,12 @@ def main() -> int:
         **{f"figures {name}": StepConfig(name, name in ("drgda", "gt-gda"),
                                          image_hw=14, retraction="polar")
            for name in ("drgda", "gt-gda", "drsgda", "gnsd-a", "dm-hsgd",
-                        "gt-srvr")}})
+                        "gt-srvr")},
+        "robust PCA example": StepConfig("drgda", True,
+                                         setup=_robust_pca_setup("example")),
+        "robust PCA full width": StepConfig("drgda", True,
+                                            setup=_robust_pca_setup("full")),
+        "DRO drsgda": StepConfig("drsgda", False, setup=_dro_setup)})
     log("agreement:")
     agreement_phase()
     # after the profile phase: its walls come before any profiler session

@@ -22,7 +22,9 @@ from typing import Any, Callable, Optional
 import torch
 from torch.func import grad
 
-from repro_torch.geometry import as_manifold_map, tangent_project_tree
+from repro_torch.geometry import (Product, as_manifold_map,
+                                  tangent_project_tree)
+from repro_torch.tree import tree_flatten
 
 Tensor = torch.Tensor
 
@@ -54,6 +56,11 @@ class MinimaxProblem:
         object.__setattr__(self, "manifold_map",
                            as_manifold_map(self.manifold_map))
 
+    @property
+    def manifold(self) -> Product:
+        """The product geometry over the whole parameter tree."""
+        return Product(self.manifold_map)
+
     def grads(self, x: dict, y: Tensor, batch: Any) -> tuple[dict, Tensor]:
         """(euclidean grad_x, grad_y) of the local loss at (x, y)."""
         return grad(self.loss_fn, argnums=(0, 1))(x, y, batch)
@@ -68,3 +75,14 @@ class MinimaxProblem:
 
     def value(self, x: dict, y: Tensor, batch: Any) -> Tensor:
         return self.loss_fn(x, y, batch)
+
+
+def validate_manifold(params: dict, manifold_map: Any) -> Tensor:
+    """Max feasibility residual over all constrained leaves (0.0 if none)."""
+    errs = [m.check(x).max()
+            for m, x in zip(tree_flatten(as_manifold_map(manifold_map))[0],
+                            tree_flatten(params)[0])
+            if m.name != "euclidean"]
+    if not errs:
+        return torch.zeros(())
+    return torch.stack(errs).max()

@@ -17,11 +17,13 @@ Optimizer hooks: ``consensus_step`` (``alpha * P_x(mx)``), the DRGDA
 x-update ``descent_update``, ``feasible_init`` and ``resolve_retraction``.
 
 Geometries register under a name; :func:`as_manifold_map` turns a tree of
-names (or instances) into Manifold instances.
+names (or instances) into Manifold instances, and
+:func:`manifold_map_from_paths` builds one from the parameters' key paths.
+The JAX package's legacy bool masks (``stiefel_mask``) are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -44,6 +46,9 @@ class Manifold:
     #: name of the fused-kernel retraction, or None.  A fused retraction
     #: takes the *ambient* update direction and projects inside the kernel.
     fused_retraction: Optional[str] = None
+    #: True when points must be tall matrices (d >= r): the orthonormal-
+    #: column geometries; norm-constraint geometries accept any (d, r)
+    requires_tall: bool = False
 
     # -- protocol ----------------------------------------------------------
     def tangent_project(self, x: Tensor, g: Tensor) -> Tensor:
@@ -159,6 +164,35 @@ def as_manifold_map(spec_tree: Tree) -> Tree:
     instances) to Manifold instances."""
     return tree_map(_as_manifold, spec_tree,
                     is_leaf=lambda s: isinstance(s, Manifold))
+
+
+def manifold_map_from_paths(params: Tree, predicate: Callable[[str], bool],
+                            manifold: str | Manifold = "stiefel") -> Tree:
+    """Per-leaf manifold map by matching '/'-joined key paths.
+
+    Matched leaves get ``manifold`` (name or instance) when they are
+    matrix-shaped (ndim >= 2; additionally tall, d >= r, for geometries
+    with ``requires_tall``); everything else stays Euclidean.
+    """
+    m = _as_manifold(manifold)
+    eu = get("euclidean")
+
+    def walk(tree, path: tuple[str, ...]):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (_key_str(k),)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, path + (_key_str(i),))
+                              for i, v in enumerate(tree))
+        ok = bool(predicate("/".join(path))) and tree.ndim >= 2 and (
+            not m.requires_tall or tree.shape[-2] >= tree.shape[-1])
+        return m if ok else eu
+
+    return walk(params, ())
+
+
+def _key_str(k) -> str:
+    """A dict key or sequence index as one component of a key path."""
+    return str(k)
 
 
 def tangent_project_tree(manifold_map: Tree, x: Tree, g: Tree) -> Tree:

@@ -162,6 +162,7 @@ class Stiefel(Manifold):
     retractions = ("polar", "qr", "cayley", "polar_fused")
     default_retraction = "polar"
     fused_retraction = "polar_fused"
+    requires_tall = True
 
     def tangent_project(self, x: Tensor, g: Tensor) -> Tensor:
         return tangent_project(x, g)

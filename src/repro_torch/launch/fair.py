@@ -61,7 +61,6 @@ COMM_PRESETS = {
 #: the methods of each figure, as the JAX package's ``run()``
 FIGURES = {"figure1_deterministic": ("drgda", "gt-gda"),
            "figure2_stochastic": ("drsgda", "gnsd-a", "dm-hsgd", "gt-srvr")}
-CURVE_KEYS = ("loss", "M_t", "consensus_x", "stiefel_residual")
 #: the JAX package's curves of both figures, in a checkout of the repository
 REFERENCE = (Path(__file__).resolve().parents[3] / "tests" / "data"
              / "fair_reference_curves.json")
@@ -94,7 +93,8 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
             n_nodes: int = 20, k_steps: int | None = 1,
             retraction: str = "polar_fused", device="cuda",
             comm: CommSpec | None = None, draws=None,
-            params: dict | None = None) -> Run:
+            params: dict | None = None, problem=None,
+            stream: ClassificationStream | None = None) -> Run:
     """Build the stream, the CNN, the problem and optimizer ``name`` (a key
     of ``OPTIMIZERS``), and initialize its state.
 
@@ -104,8 +104,12 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
     one seeded with ``comm.seed``).  ``hyper`` defaults to
     :func:`default_hyper`, whose retraction is ``retraction``.  ``params``:
     the one node's initial weights every node starts from (port layout;
-    default: ``init_cnn`` seeded with ``seed``).  GT-SRVR, like the others,
-    is initialized on the first batch.  Sets
+    default: ``init_cnn`` seeded with ``seed``).  ``problem``: a function of
+    the initial weights that returns the problem (default: the fair
+    problem at ``RHO``).  ``stream``: the data (default: the classification
+    stream of ``n_nodes``, ``BATCH_PER_NODE``, ``image_hw`` and ``seed``;
+    a given one sets ``n_nodes`` and ``image_hw``).  GT-SRVR, like the
+    others, is initialized on the first batch.  Sets
     ``torch.backends.cuda.matmul.allow_tf32``
     and ``torch.backends.cudnn.allow_tf32`` to False: the system is fp32
     throughout, and TF32 convolutions alone would break trajectory parity
@@ -118,15 +122,17 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    stream = ClassificationStream(n_nodes=n_nodes,
-                                  batch_per_node=BATCH_PER_NODE,
-                                  image_hw=image_hw, seed=seed)
+    if stream is None:
+        stream = ClassificationStream(n_nodes=n_nodes,
+                                      batch_per_node=BATCH_PER_NODE,
+                                      image_hw=image_hw, seed=seed)
+    n_nodes, image_hw = stream.n_nodes, stream.image_hw
     if params is None:
         params = fair.init_cnn(torch.Generator().manual_seed(seed),
                                image_hw=image_hw, device=dev)
     else:
         params = {k: v.to(dev) for k, v in params.items()}
-    problem = fair.make_fair_problem(params, rho=RHO)
+    problem = (problem or _fair_problem)(params)
     x0 = broadcast_to_nodes(params, n_nodes)
     y0 = torch.full((n_nodes, 3), 1.0 / 3.0, device=dev)
     spec = GossipSpec(topology="ring", n_nodes=n_nodes, k_steps=k_steps,
@@ -139,6 +145,10 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
                      else batch_to_torch(stream.batch(0), dev))
     return Run(opt=opt, problem=problem, stream=stream, full=full,
                state=state, device=dev)
+
+
+def _fair_problem(params: dict):
+    return fair.make_fair_problem(params, rho=RHO)
 
 
 def run_method(name: str, steps: int, deterministic: bool, seed: int = 0,
@@ -214,14 +224,18 @@ def run_figures(steps_det: int = 120, steps_stoch: int = 150, seed: int = 0,
             for fig, names in FIGURES.items()}
 
 
+def decode(v: dict) -> np.ndarray:
+    """An array of a reference file: float32 little-endian in base64."""
+    return np.frombuffer(base64.b64decode(v["float32_base64"]),
+                         dtype="<f4").reshape(v["shape"])
+
+
 def load_reference(path) -> dict:
-    """The JAX package's curves file (``tests/_reference_curves.py``), with
-    ``init_params`` decoded into the port's layout on the CPU."""
+    """A curves file of the JAX package (``tests/_reference_curves.py``),
+    with ``init_params`` decoded into the port's layout on the CPU."""
     ref = json.loads(Path(path).read_text())
     ref["init_params"] = params_from_reference(
-        {k: np.frombuffer(base64.b64decode(v["float32_base64"]),
-                          dtype="<f4").reshape(v["shape"])
-         for k, v in ref["init_params"].items()}, "cpu")
+        {k: decode(v) for k, v in ref["init_params"].items()}, "cpu")
     return ref
 
 
@@ -235,44 +249,56 @@ def run_reference_figures(reference: dict, device="cuda") -> dict:
                        params=reference["init_params"])
 
 
+#: quantities whose gap is absolute: rounding noise (the Stiefel residual)
+#: or an angle near 0, where fp32 rounding of a cosine near 1 is about 5e-4
+ABSOLUTE = ("stiefel_residual", "angle")
+
+
 def _gap(a: dict, b: dict, key: str) -> float:
     """Curve point ``a``'s gap from the reference's ``b``: relative to the
-    reference's value, absolute for stiefel_residual (rounding error, not
-    shared by two implementations)."""
-    if key == "stiefel_residual":
+    reference's value, absolute for the quantities of :data:`ABSOLUTE`."""
+    if key in ABSOLUTE:
         return abs(a[key] - b[key])
     return abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
 
 
+def compare_curves(runs: list, ref_runs: list, tolerance: dict) -> dict:
+    """Each run's curve against the reference run of its method, point by
+    point, under the gates of ``tolerance`` (method -> quantity -> one gate
+    per curve point; null where the point is reported and not gated).  Per
+    method and quantity: the largest gap over the gated points (``gated``)
+    and over the others (``reported``, None if every point is gated), the
+    last gated step (``gated_through``), and every gated point over its
+    gate (``over``: step, gap, gate).  The two must have the same methods
+    and curve steps."""
+    runs = {r["method"]: r for r in runs}
+    out = {}
+    for ref_run in ref_runs:
+        name = ref_run["method"]
+        got, want = runs[name]["curve"], ref_run["curve"]
+        if [p["step"] for p in got] != [p["step"] for p in want]:
+            raise ValueError(f"{name}: curve steps differ")
+        out[name] = {}
+        for key, gates in tolerance[name].items():
+            points = [(b["step"], _gap(a, b, key), gate)
+                      for a, b, gate in zip(got, want, gates)]
+            gated = [p for p in points if p[2] is not None]
+            rest = [p[1] for p in points if p[2] is None]
+            out[name][key] = {
+                "gated": max(p[1] for p in gated) if gated else None,
+                "reported": max(rest) if rest else None,
+                "gated_through": gated[-1][0] if gated else None,
+                "over": [p for p in gated if p[1] > p[2]]}
+    return out
+
+
 def compare_to_reference(figures: dict, reference: dict) -> dict:
-    """The curves of :func:`run_figures` against the reference's, point by
-    point, under the gates of its ``tolerance`` (one per curve point; null
-    where the point is reported and not gated).  Per method and quantity:
-    the largest gap over the gated points (``gated``) and over the others
-    (``reported``, None if every point is gated), the last gated step
-    (``gated_through``), and every gated point over its gate (``over``:
-    step, gap, gate).  The two must have the same methods and curve
-    steps."""
+    """The curves of :func:`run_figures` against the reference's, figure
+    by figure (:func:`compare_curves`)."""
     out = {}
     for fig, ref_runs in reference["figures"].items():
-        runs = {r["method"]: r for r in figures[fig]}
-        for ref_run in ref_runs:
-            name = ref_run["method"]
-            got, want = runs[name]["curve"], ref_run["curve"]
-            if [p["step"] for p in got] != [p["step"] for p in want]:
-                raise ValueError(f"{name}: curve steps differ")
-            out[name] = {}
-            for key in CURVE_KEYS:
-                gates = reference["tolerance"][name][key]
-                points = [(b["step"], _gap(a, b, key), gate)
-                          for a, b, gate in zip(got, want, gates)]
-                gated = [p for p in points if p[2] is not None]
-                rest = [p[1] for p in points if p[2] is None]
-                out[name][key] = {
-                    "gated": max(p[1] for p in gated) if gated else None,
-                    "reported": max(rest) if rest else None,
-                    "gated_through": gated[-1][0] if gated else None,
-                    "over": [p for p in gated if p[1] > p[2]]}
+        out.update(compare_curves(figures[fig], ref_runs,
+                                  reference["tolerance"]))
     return out
 
 

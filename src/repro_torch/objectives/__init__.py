@@ -1,1 +1,2 @@
-"""Objectives of the port (orthonormal fair classification, DRO)."""
+"""Objectives of the port: orthonormal fair classification and DRO
+(``fair``), robust PCA on the Grassmann manifold (``robust_pca``)."""
