@@ -87,16 +87,27 @@
    the card against the CPU (1e-4 relative in loss and M_t).  Then the DRO
    experiment (``repro_torch.launch.dro``: DRSGDA, GNSD-A, DM-HSGD at the
    settings of ``benchmarks/dro.py``) from the JAX package's initial
-   weights, held against ``tests/data/dro_reference_curves.json``.  Every
-   robust-PCA and DRO run's launches are asserted: no stiefel_project and
+   weights, held against ``tests/data/dro_reference_curves.json``.  Then
+   elastic gossip (``repro_torch.launch.elastic``, the counterpart of
+   ``benchmarks/elastic.py``): DRGDA on an 8-node ring under six churn and
+   straggler schedules, fair classification and robust PCA, from the JAX
+   package's weights, data and recorded draws, every curve point inside
+   the gate and with the live-node count of
+   ``tests/data/elastic_reference.json``, leave-and-rejoin within 2x of
+   the static ring; every realized W_t of the contract sweep on the card
+   symmetric, doubly stochastic to 1e-6, departed rows identity; and
+   leave-and-rejoin at the main path's configuration (20 nodes, 28x28,
+   30 steps) beside the static ring, within 2x.  An elastic step launches
+   no ring kernel (its W_t is applied by einsum).  Every
+   robust-PCA, DRO and elastic run's launches are asserted: no stiefel_project and
    no fused_retract in a robust-PCA step, one grouped ring_mix call per
    mixed tree (the example at the ring's Theorem-1 k = 8: one ring_mix and
    three multi_hop_mix), 5 projections a DRSGDA step.  Then a profile of a
    DRGDA k = 1 step, an EF-int8 k = 1 step, a DRGDA k = 67 step, an EF-int8
    quant_hops="all" k = 67 step, a GT-GDA step and a DM-HSGD step, and a
    step of each of the six methods as the figures phase runs it, a
-   robust-PCA step at the example's size and at full width, and a DRO
-   DRSGDA step (wall
+   robust-PCA step at the example's size and at full width, a DRO
+   DRSGDA step, and an elastic leave-and-rejoin step at full width (wall
    time, device time and busy share, the kernels that take the most, and
    the port's launches a step: one stiefel_project launch, for EF-int8 four
    quant_mix and no ring_mix, for the baselines four ring_mix and no
@@ -1165,6 +1176,159 @@ def dro_phase() -> dict:
     return counts
 
 
+# an elastic step applies each round's realized W_t by einsum: no ring
+# kernel; DRGDA's projections are those of its retraction ("polar" at the
+# reference's settings: PLAIN_RETRACTION_STEP's 5, "polar_fused" at full
+# width: one projection and two retractions), and robust PCA launches no
+# projection kernel (PCA_FULL_STEP)
+ELASTIC_FAIR_STEP = {**PLAIN_RETRACTION_STEP, "ring_mix": 0}
+ELASTIC_PCA_STEP = {**PCA_FULL_STEP, "ring_mix": 0}
+ELASTIC_FULL_STEP = {"stiefel_project": 1, "fused_retract": 2, "ring_mix": 0,
+                     "multi_hop_mix": 0}
+
+
+def elastic_phase() -> dict:
+    """Elastic gossip (``repro_torch.launch.elastic``, the counterpart of
+    ``benchmarks/elastic.py``):
+
+    1. the reference run: DRGDA on an 8-node ring under the six schedules,
+       fair classification (14x14, 60 steps) and robust PCA (Gr(20, 3),
+       200 steps), from the JAX package's weights, data and recorded churn
+       and straggler draws (``tests/data/elastic_reference.json``), every
+       curve point inside the file's gate and its live-node count equal to
+       the file's, the Stiefel residual within 1e-4, the leave-and-rejoin
+       M_t within 2x of the static ring's;
+    2. the W_t contract on the card: every realized W_t of the sweep
+       (static, scripted and random churn, each at tau = 0 with 30%
+       stragglers and tau = 2 with 20% drops and 30% stragglers, 25
+       rounds) exactly symmetric, rows and columns summing to 1 within
+       1e-6, each departed node's row exactly the identity row;
+    3. full width: DRGDA at the main path's configuration (20-node ring,
+       28x28, "polar_fused", 30 steps) with node 3 leaving at step 10 and
+       rejoining at step 20, beside the static ring: finite, M_t within 2x,
+       both median steps printed.
+
+    Each run's launches a step are asserted (ELASTIC_FAIR_STEP,
+    ELASTIC_PCA_STEP, ELASTIC_FULL_STEP; the static schedule
+    PLAIN_RETRACTION_STEP, PCA_FULL_STEP, STEP_LAUNCHES["full k=1"]), and
+    each part's total (plus one projection per fair evaluation and one at
+    init).  Returns the phase's counts."""
+    import torch
+    from repro_torch.comms import elastic as ce
+    from repro_torch.kernels import ops
+    from repro_torch.launch import elastic as el
+
+    ref = el.load_reference(ROOT / "tests" / "data"
+                            / "elastic_reference.json")
+    ops.reset_launch_counts()
+    res = el.run_reference(ref, "cuda")
+    torch.cuda.synchronize()
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    for problem in el.PROBLEMS:
+        fair_run = problem == "fair_classification"
+        for row in res[problem]:
+            name = row["schedule"]
+            static = el.SCHEDULES[name] is None
+            per_step = (
+                (PLAIN_RETRACTION_STEP if static else ELASTIC_FAIR_STEP)
+                if fair_run else (PCA_FULL_STEP if static
+                                  else ELASTIC_PCA_STEP))
+            _check_launches(f"elastic {problem} {name} step",
+                            row["launches_per_step"], per_step)
+            steps, evals = row["curve"][-1]["step"], len(row["curve"])
+            for n, c in per_step.items():
+                want[n] += c * steps
+            if fair_run:
+                want["stiefel_project"] += (
+                    EVAL_LAUNCHES["stiefel_project"] * evals
+                    + INIT_LAUNCHES["drgda"]["stiefel_project"])
+            for p in row["curve"]:
+                if not all(math.isfinite(p[k]) for k in (
+                        "loss", "M_t", "consensus_x")) \
+                        or p["stiefel_residual"] > 1e-4:
+                    raise AssertionError(f"elastic {problem} {name}: "
+                                         f"point {p}")
+    _check_launches("elastic reference run", ops.launch_counts(), want)
+    comparison = el.compare_to_reference(res, ref)
+    for problem in el.PROBLEMS:
+        want_rows = {r["schedule"]: r for r in ref[problem]}
+        for row in res[problem]:
+            name, last = row["schedule"], row["curve"][-1]
+            c = comparison[problem][name]
+            gated = max(v["gated"] for v in c.values()
+                        if v["gated"] is not None)
+            reported = [v["reported"] for v in c.values()
+                        if v["reported"] is not None]
+            live = "/".join(str(p["live"]) for p in row["curve"])
+            log(f"  {problem:19s} {name:13s} steps={last['step']:<4d} final "
+                f"M_t={last['M_t']:.6f} (JAX "
+                f"{want_rows[name]['final_M_t']:.6f}) live {live}; largest "
+                f"gated gap {gated:.3e}"
+                + (f", reported {max(reported):.3e}" if reported else "")
+                + f"; us_per_step={row['us_per_step']:.1f}; launches a step "
+                f"{ {n: c for n, c in row['launches_per_step'].items() if c} }")
+            for key, v in c.items():
+                if v["over"]:
+                    log(f"    {key}: over the gate {v['over']}")
+    if comparison["live"]:
+        raise AssertionError(f"elastic: live-node counts differ from the "
+                             f"reference's: {comparison['live']}")
+    if not el.within_reference(comparison):
+        raise AssertionError("elastic: curve points outside the "
+                             "reference's gate (above)")
+    log(f"  leave_rejoin / static M_t {res['leave_rejoin_Mt_ratio']:.4f} "
+        f"(JAX {ref['leave_rejoin_Mt_ratio']:.4f}); within 2x "
+        f"{res['leave_rejoin_within_2x']}")
+    if not res["leave_rejoin_within_2x"]:
+        raise AssertionError("elastic: leave_rejoin not within 2x of static")
+
+    checked, rounds = 0, 25
+    for name, churn in ce.SWEEP_SCHEDULES.items():
+        for tau, drop, strag in ce.SWEEP_FAULTS:
+            found = ce.sweep_findings(churn, tau, drop, strag, rounds=rounds,
+                                      device="cuda")
+            if found:
+                raise AssertionError(f"elastic W_t sweep {name} tau={tau} "
+                                     f"drop={drop} strag={strag}: {found}")
+            checked += rounds
+    log(f"  W_t contract on the card: {checked} realized matrices "
+        f"(static, scripted, random churn; tau 0 and 2) symmetric, doubly "
+        f"stochastic to 1e-6, departed rows identity")
+
+    before = ops.launch_counts()
+    full = el.run_full_width("cuda")
+    torch.cuda.synchronize()
+    want = dict.fromkeys(before, 0)
+    for name, per_step in (("static", STEP_LAUNCHES["full k=1"]),
+                           ("leave_rejoin", ELASTIC_FULL_STEP)):
+        row = full[name]
+        _check_launches(f"elastic full width {name} step",
+                        row["launches_per_step"], per_step)
+        _check_curve(f"elastic full width {name}", row["curve"])
+        for n, c in per_step.items():
+            want[n] += c * row["curve"][-1]["step"]
+        want["stiefel_project"] += (
+            EVAL_LAUNCHES["stiefel_project"] * len(row["curve"])
+            + INIT_LAUNCHES["drgda"]["stiefel_project"])
+    _check_launches("elastic full width", _launched(before), want)
+    ratio = full["leave_rejoin_Mt_ratio"]
+    log(f"  full width, 20 nodes, 28x28, polar_fused, 30 steps: static "
+        f"M_t={full['static']['final_M_t']:.6f} "
+        f"us_per_step={full['static']['us_per_step']:.1f}; leave_rejoin "
+        f"(node 3 away for steps 11-20) M_t="
+        f"{full['leave_rejoin']['final_M_t']:.6f} us_per_step="
+        f"{full['leave_rejoin']['us_per_step']:.1f}, live "
+        + "/".join(str(p["live"]) for p in full["leave_rejoin"]["curve"])
+        + f"; M_t ratio {ratio:.4f}")
+    if not full["leave_rejoin_within_2x"]:
+        raise AssertionError(f"elastic full width: leave_rejoin M_t ratio "
+                             f"{ratio} (finite "
+                             f"{full['leave_rejoin']['finite']})")
+    counts = ops.launch_counts()
+    log(f"  launches {counts}")
+    return counts
+
+
 def own_kernels() -> re.Pattern:
     """A pattern that finds, in a profiler event's name, any ``__global__``
     function of the port's CUDA sources: every kernel the port can launch,
@@ -1199,6 +1363,7 @@ STEP_LAUNCHES = {
     "robust PCA example": PCA_EXAMPLE_STEP,
     "robust PCA full width": PCA_FULL_STEP,
     "DRO drsgda": PLAIN_RETRACTION_STEP,
+    "elastic leave_rejoin k=1": ELASTIC_FULL_STEP,
 }
 
 
@@ -1228,6 +1393,19 @@ def _dro_setup():
                                   hetero=dro.HETERO, seed=0)
     return prepare("drsgda", False, hyper=dro.hyper("drsgda"),
                    device="cuda", problem=make_dro_problem, stream=stream)
+
+
+def _elastic_setup():
+    """DRGDA at the main path's configuration with node 3 leaving at step
+    10 and rejoining at step 20 (``launch.elastic.FULL_WIDTH``)."""
+    from repro_torch.launch import elastic
+    from repro_torch.launch.fair import prepare
+
+    cfg = elastic.FULL_WIDTH
+    return prepare("drgda", True, image_hw=cfg["image_hw"],
+                   n_nodes=cfg["n_nodes"], k_steps=1,
+                   retraction=cfg["retraction"], device="cuda",
+                   elastic=cfg["elastic"])
 
 
 def _robust_pca_setup(size: str):
@@ -1958,6 +2136,8 @@ def main() -> int:
     paths["robust_pca"] = robust_pca_phase()
     log("DRO:")
     paths["dro"] = dro_phase()
+    log("elastic:")
+    paths["elastic"] = elastic_phase()
     log("profile:")
     from repro_torch.launch.fair import COMM_PRESETS
     int8 = COMM_PRESETS["int8_ef"]
@@ -1980,7 +2160,9 @@ def main() -> int:
                                          setup=_robust_pca_setup("example")),
         "robust PCA full width": StepConfig("drgda", True,
                                             setup=_robust_pca_setup("full")),
-        "DRO drsgda": StepConfig("drsgda", False, setup=_dro_setup)})
+        "DRO drsgda": StepConfig("drsgda", False, setup=_dro_setup),
+        "elastic leave_rejoin k=1": StepConfig("drgda", True,
+                                               setup=_elastic_setup)})
     log("agreement:")
     agreement_phase()
     # after the profile phase: its walls come before any profiler session

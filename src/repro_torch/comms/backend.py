@@ -11,6 +11,8 @@ the card, the plain version on the CPU):
     exact hop of the old public copies fused in) -> one ``quant_mix``
     launch per tree (per 16 leaves); ``quant_ring_hop`` is its one-leaf
     case;
+  * ``mix_wt`` (a realized per-round ``W_t``, the elastic engine's) ->
+    one einsum per leaf and hop, no kernel;
   * ``quant_ring_hops_leaves`` (all-hop int8 of a tree) ->
     ``quantize_det`` per leaf, then one ``multi_hop_mix_quant`` launch for
     every hop of every leaf (per 16 leaves); ``quant_ring_hops`` is its
@@ -97,6 +99,17 @@ class StackedBackend:
         """``steps`` hops through a :class:`~repro_torch.comms.channel.
         ChannelModel` (link drops / stragglers / schedules)."""
         return channel.mix(tree, rnd, key, steps=steps)
+
+    def mix_wt(self, spec, tree, wt: torch.Tensor, *, steps: int = 1):
+        """``steps`` hops of one realized (n, n) mixing matrix ``wt``
+        (the elastic engine's ``W_t``), by einsum per leaf: the expression
+        ``ChannelModel.mix_hop`` applies to a faulty round, so the two are
+        bitwise equal whenever their matrices are.  No ring kernel: the
+        weights differ per node."""
+        for _ in range(max(steps, 0)):
+            tree = tree_map(lambda x: torch.einsum(
+                "ij,j...->i...", wt.to(x.dtype), x), tree)
+        return tree
 
     def quant_ring_hop_leaves(self, spec, qs: list[torch.Tensor],
                               scales: list[torch.Tensor],

@@ -22,7 +22,10 @@ launch.
 Randomness comes from the engine's draw source (``comms.compress``): the
 round's keys are ``(slot, rnd)`` for quantization and ``(slot/chan, rnd)``
 for the channel, stateless per round as the JAX package's ``fold_in``
-derivation is.  Elastic membership is not ported.
+derivation is.  With ``GossipSpec.elastic`` set and enabled,
+:func:`maybe_engine` returns the elastic engine
+(:mod:`repro_torch.comms.elastic`), whose membership rides
+``CommState.elastic``.
 """
 from __future__ import annotations
 
@@ -47,6 +50,9 @@ class CommState(NamedTuple):
     # (E||C(r) - r||^2 <= (1 - delta)||r||^2); only tracked when
     # CommSpec.gamma_mode == "adaptive"
     deltas: Any = None
+    # elastic execution-mode membership (repro_torch.comms.elastic.
+    # Membership); None outside elastic mode
+    elastic: Any = None
 
 
 class CommEngine:
@@ -59,12 +65,27 @@ class CommEngine:
         comm: Optional[CommSpec] = gossip.comm
         if comm is None or not comm.enabled:
             raise ValueError("CommEngine requires an enabled GossipSpec.comm")
+        self._setup(gossip, comm, draws)
+
+    def _setup(self, gossip, comm: CommSpec, draws) -> None:
+        """Shared constructor body; ``ElasticEngine`` calls it with a
+        default (disabled) ``CommSpec`` when the gossip spec carries no comm
+        config of its own."""
         self.gossip = gossip
         self.comm = comm
         self.compressor = make_compressor(comm)
         self.channel = ChannelModel.for_gossip(gossip, comm)
         self.backend = resolve_backend(gossip)
         self.draws = draws if draws is not None else GeneratorDraws(comm.seed)
+        # slot -> manifold map, registered by the optimizer so the elastic
+        # join protocol can project re-initialized slots; unused here
+        self.manifolds: dict = {}
+
+    def register_manifolds(self, maps: dict) -> None:
+        """Record per-slot manifold maps (``{"x": problem.manifold_map}``).
+        The base engine never reads them; the elastic engine projects a
+        rejoining node's consensus-mean re-init through them."""
+        self.manifolds.update({k: v for k, v in maps.items() if v is not None})
 
     # -- state --------------------------------------------------------------
 
@@ -213,6 +234,11 @@ class CommEngine:
 
 
 def maybe_engine(gossip, draws=None) -> Optional[CommEngine]:
+    elastic = getattr(gossip, "elastic", None)
+    if elastic is not None and elastic.enabled:
+        # lazy: elastic.py imports this module at its top level
+        from repro_torch.comms.elastic import ElasticEngine
+        return ElasticEngine(gossip, draws=draws)
     comm = getattr(gossip, "comm", None)
     if comm is not None and comm.enabled:
         return CommEngine(gossip, draws=draws)

@@ -19,8 +19,9 @@ one hop, whatever ``GossipSpec.k`` is, so an exact ring mixes each tree in
 one grouped ``ring_mix`` call, and ``GossipSpec.comm`` routes the mixes
 through the comms engine over the slots x, y, u and v, as in
 ``core/gda.py``.  The order of operations is the JAX package's.
-Telemetry, the elastic engine's manifold registration and the jitted
-``make_step`` are not ported.
+With ``GossipSpec.elastic`` set the mixes run through the elastic engine,
+to which each method registers the problem's manifold map.  Telemetry and
+the jitted ``make_step`` are not ported.
 """
 from __future__ import annotations
 
@@ -84,6 +85,8 @@ class _Baseline:
                  hyper, draws=None):
         self.problem, self.gossip, self.hyper = problem, gossip, hyper
         self.engine = maybe_engine(gossip, draws=draws)
+        if self.engine is not None:
+            self.engine.register_manifolds({"x": problem.manifold_map})
 
     def _init_grads(self, x0: dict, y0: Tensor, batch0: Any):
         with torch.no_grad():

@@ -26,8 +26,10 @@ The per-node gradients come from ``torch.func.vmap`` over
 node-stacked gradients (one kernel launch per leaf for all nodes).
 With ``GossipSpec.comm`` set, every mix runs through the comms engine
 (``comms/layer.py``), whose memory rides ``GDAState.comm`` over the slots
-x, y, u and v, and whose draws are keyed by the step.  Telemetry and
-elastic mode are not ported.
+x, y, u and v, and whose draws are keyed by the step.  With
+``GossipSpec.elastic`` set, the engine is the elastic one
+(``comms/elastic.py``), to which the optimizer registers the problem's
+manifold map for the rejoin protocol.  Telemetry is not ported.
 """
 from __future__ import annotations
 
@@ -99,6 +101,10 @@ class DecentralizedGDA:
         self.k = hyper.k_override if hyper.k_override is not None \
             else gossip.k
         self.engine = maybe_engine(gossip, draws=draws)
+        if self.engine is not None:
+            # the elastic join protocol projects a rejoining node's
+            # consensus-mean x re-init through the problem's geometry
+            self.engine.register_manifolds({"x": problem.manifold_map})
 
     def init(self, x0: dict, y0: Tensor, batch0: Any) -> GDAState:
         """x0/y0 node-stacked; u_0 = grad_x f_i(x_0, y_0; B_0), v_0 likewise."""

@@ -12,19 +12,24 @@ node-stacked layout (node axis = axis 0 of every leaf):
 (:mod:`repro_torch.comms.backend`), which sends ring hops to the CUDA
 kernels.  ``GossipSpec.comm`` (a :class:`~repro_torch.comms.spec.CommSpec`)
 turns on the comms engine: compressed gossip with error feedback and a
-faulty channel.
+faulty channel.  ``GossipSpec.elastic`` (a :class:`~repro_torch.comms.
+elastic.ElasticSpec`) turns on the elastic execution mode: membership
+churn, stale-hop tolerance and rejoin.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Literal, Optional
+from typing import TYPE_CHECKING, Literal, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.comms.spec import CommSpec
 from repro_torch.tree import tree_map
+
+if TYPE_CHECKING:
+    from repro_torch.comms.elastic import ElasticSpec
 
 Tensor = torch.Tensor
 Topology = Literal["ring", "full", "torus", "star"]
@@ -158,6 +163,10 @@ class GossipSpec:
     # repro_torch.comms.layer.CommEngine (compression, channel faults)
     # instead of the exact paths.
     comm: Optional[CommSpec] = None
+    # When set and enabled, mixing runs in the elastic execution mode
+    # (repro_torch.comms.elastic.ElasticEngine): membership churn,
+    # stale-hop tolerance, realized W_t over the live subgraph.
+    elastic: Optional["ElasticSpec"] = None
 
     @property
     def matrix(self) -> np.ndarray:

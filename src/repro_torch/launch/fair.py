@@ -94,14 +94,17 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
             retraction: str = "polar_fused", device="cuda",
             comm: CommSpec | None = None, draws=None,
             params: dict | None = None, problem=None,
-            stream: ClassificationStream | None = None) -> Run:
+            stream: ClassificationStream | None = None,
+            elastic=None) -> Run:
     """Build the stream, the CNN, the problem and optimizer ``name`` (a key
     of ``OPTIMIZERS``), and initialize its state.
 
     ``k_steps=None`` takes the Theorem-1 gossip steps of the ring (the
     baselines mix one hop whatever it is).  ``comm`` routes every mix
     through the comms engine, with ``draws`` as its draw source (default:
-    one seeded with ``comm.seed``).  ``hyper`` defaults to
+    one seeded with ``comm.seed``); ``elastic`` (an
+    :class:`~repro_torch.comms.elastic.ElasticSpec`) through the elastic
+    engine, with the same ``draws``.  ``hyper`` defaults to
     :func:`default_hyper`, whose retraction is ``retraction``.  ``params``:
     the one node's initial weights every node starts from (port layout;
     default: ``init_cnn`` seeded with ``seed``).  ``problem``: a function of
@@ -136,7 +139,7 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
     x0 = broadcast_to_nodes(params, n_nodes)
     y0 = torch.full((n_nodes, 3), 1.0 / 3.0, device=dev)
     spec = GossipSpec(topology="ring", n_nodes=n_nodes, k_steps=k_steps,
-                      comm=comm)
+                      comm=comm, elastic=elastic)
     hyper = hyper or default_hyper(name, retraction)
     opt = OPTIMIZERS[name](problem, spec, hyper, draws=draws)
 

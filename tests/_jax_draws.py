@@ -4,12 +4,15 @@ other bit for bit.  Imported by the parity tests after
 ``pytest.importorskip("jax")``."""
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro.comms import layer as jlayer
+from repro.comms.spec import CommSpec as JCommSpec
 
 _TO_OIHW = (0, 4, 3, 1, 2)
 _TO_HWIO = (0, 3, 4, 2, 1)
@@ -69,3 +72,36 @@ class JaxDraws:
         omega = jax.random.normal(self._quant_key(stream, rnd, index), shape,
                                   jnp.float32)
         return torch.from_numpy(np.asarray(omega).copy())
+
+
+class ElasticJaxDraws(JaxDraws):
+    """:class:`JaxDraws` for the elastic engine.
+
+    Elastic mode carries its fault rates on ``ElasticSpec`` under a
+    disabled (or compression-only) ``CommSpec``, so the channel keys split
+    in the order ``ElasticSpec.drop_rate`` / ``straggler_rate`` give (drop,
+    then straggle; no schedule split).  The churn streams
+    ``elastic/churn/{leave,join}`` return the uniforms behind the JAX
+    package's ``ChurnSchedule.active``: ``k_leave, k_join =
+    split(fold_in(PRNGKey(ElasticSpec.seed), rnd))``, one ``uniform((n,))``
+    each (``bernoulli(k, p, shape)`` is ``uniform(k, shape) < p``)."""
+
+    def __init__(self, elastic, comm=None):
+        comm = comm if comm is not None and comm.enabled else JCommSpec()
+        super().__init__(dataclasses.replace(
+            comm, drop_rate=elastic.drop_rate,
+            straggler_rate=elastic.straggler_rate))
+        self.elastic = elastic
+
+    def churn_keys(self, rnd):
+        """(k_leave, k_join) of round ``rnd``."""
+        return tuple(jax.random.split(jax.random.fold_in(
+            jax.random.PRNGKey(self.elastic.seed), rnd)))
+
+    def uniform(self, stream, rnd, index, shape, device):
+        if stream.startswith("elastic/churn/"):
+            k_leave, k_join = self.churn_keys(rnd)
+            key = k_leave if stream.endswith("/leave") else k_join
+            u = jax.random.uniform(key, tuple(shape), jnp.float32)
+            return torch.from_numpy(np.asarray(u).copy())
+        return super().uniform(stream, rnd, index, shape, device)

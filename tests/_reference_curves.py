@@ -1,9 +1,10 @@
 """Write the JAX package's runs to files, for the port to be held against
 on a machine without JAX.
 
-    PYTHONPATH=src python tests/_reference_curves.py [fair] [dro] [robust_pca]
+    PYTHONPATH=src python tests/_reference_curves.py [fair] [dro] \
+        [robust_pca] [elastic]
 
-(all three without arguments).  Each target runs the JAX package, then the
+(all four without arguments).  Each target runs the JAX package, then the
 same run ``ENSEMBLE`` times more from perturbed initial weights, and
 records the reference's own spread and a gate beside every curve point.
 
@@ -42,6 +43,20 @@ M_t, consensus_x, stiefel_residual, angle to the planted subspace), the
 worst-case objective ``phi`` of DRGDA and of pooled PCA, ``spread`` and
 ``tolerance``.
 
+``elastic``: ``run()`` of ``benchmarks/elastic.py`` (DRGDA on an 8-node
+ring under six churn schedules, fair classification for 60 steps and
+robust PCA for 200), written to ``tests/data/elastic_reference.json``:
+``settings`` (read from the benchmark), ``init_params`` (the CNN's
+``init_cnn(PRNGKey(0))``), the robust-PCA data ``pca_batches`` (z) and
+start ``pca_x0`` made with the benchmark's keys, the runs under
+``fair_classification`` and ``robust_pca`` (curves with loss, M_t,
+consensus_x and the live-node trace), ``draws`` (the uniforms behind every
+churn and straggler draw of the runs, per round: ``churn`` leave and join,
+``straggle`` per slot; the port cannot draw them), ``spread`` and
+``tolerance``.  The ensemble perturbs the initial weights and the PCA
+start; the churn draws do not depend on them, so every member sees the
+same membership.
+
 ``fair`` takes about 12 minutes on a CPU, ``dro`` about 6, ``robust_pca``
 about 1.  The script imports the JAX package and the benchmarks, and
 nothing of the port.
@@ -62,6 +77,9 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "data" / "fair_reference_curves.json"
 DRO_OUT = ROOT / "tests" / "data" / "dro_reference_curves.json"
 PCA_OUT = ROOT / "tests" / "data" / "robust_pca_reference.json"
+ELASTIC_OUT = ROOT / "tests" / "data" / "elastic_reference.json"
+ELASTIC_QUANTITIES = ("loss", "M_t", "consensus_x")
+ELASTIC_SLOTS = ("x", "y", "u", "v")
 EXAMPLE = ROOT / "examples" / "robust_pca.py"
 DRO_QUANTITIES = ("loss", "M_t", "worst_group_weight")
 PCA_QUANTITIES = ("loss", "M_t", "consensus_x", "angle")
@@ -118,6 +136,26 @@ PCA_CPU_GAP = {
     "drgda": {"loss": 1.535e-07, "M_t": 2.538e-03, "consensus_x": 6.626e-04,
               "angle": 1.967e-06},
     "phi": {"drgda": 0.0, "pca": 1.175e-07},
+}
+# The same for the elastic runs (`python -m repro_torch.launch.elastic
+# --device cpu`, replaying the recorded draws), per problem and schedule.
+ELASTIC_CPU_GAP = {
+    "fair_classification": {
+        "static": {"loss": 7.048e-04, "M_t": 1.514e-04, "consensus_x": 7.239e-04},
+        "leave_rejoin": {"loss": 1.362e-05, "M_t": 2.127e-05, "consensus_x": 1.669e-05},
+        "random_5pct": {"loss": 6.790e-04, "M_t": 6.728e-04, "consensus_x": 7.521e-04},
+        "random_20pct": {"loss": 4.801e-05, "M_t": 9.419e-05, "consensus_x": 2.721e-04},
+        "straggle_tau0": {"loss": 2.697e-07, "M_t": 5.403e-07, "consensus_x": 2.021e-06},
+        "straggle_tau2": {"loss": 2.259e-06, "M_t": 5.875e-04, "consensus_x": 2.396e-04},
+    },
+    "robust_pca": {
+        "static": {"loss": 4.615e-06, "M_t": 2.611e-06, "consensus_x": 1.068e-06},
+        "leave_rejoin": {"loss": 5.028e-06, "M_t": 6.919e-07, "consensus_x": 2.648e-06},
+        "random_5pct": {"loss": 1.198e-07, "M_t": 2.775e-07, "consensus_x": 1.326e-05},
+        "random_20pct": {"loss": 1.530e-07, "M_t": 2.785e-07, "consensus_x": 2.486e-05},
+        "straggle_tau0": {"loss": 2.769e-07, "M_t": 5.164e-06, "consensus_x": 2.181e-06},
+        "straggle_tau2": {"loss": 8.347e-07, "M_t": 5.538e-06, "consensus_x": 2.041e-05},
+    },
 }
 CPU_FACTOR = 10.0
 FLOOR = 1e-4
@@ -567,7 +605,177 @@ def pca_main() -> None:
     print(f"wrote {PCA_OUT}")
 
 
-TARGETS = {"fair": fair_main, "dro": dro_main, "robust_pca": pca_main}
+# ---------------------------------------------------------------------------
+# elastic gossip (benchmarks/elastic.py)
+# ---------------------------------------------------------------------------
+
+
+def elastic_settings(el) -> dict:
+    """What ``el.run()`` runs, read from the benchmark: ``N``, the
+    schedules, the defaults of ``run``, ``run_fair`` and ``run_pca``, and
+    the arguments of the calls in ``run_fair`` and ``run_pca``."""
+    from repro.core.gda import GDAHyper
+    from repro.data.synthetic import ClassificationStream
+
+    fair_calls = _calls(ast.parse(inspect.getsource(el.run_fair)))
+    pca_calls = _calls(ast.parse(inspect.getsource(el.run_pca)))
+    run, run_fair, run_pca = (_defaults(el.run), _defaults(el.run_fair),
+                              _defaults(el.run_pca))
+
+    def kw(calls, name):
+        """The call's keyword arguments that are constants (or ``N``)."""
+        out = {}
+        for k, v in calls[name][1].items():
+            try:
+                out[k] = _literal(v, {"N": el.N})
+            except (KeyError, ValueError):
+                pass
+        return out
+
+    mb = kw(pca_calls, "make_batches")
+    rand_args = [_literal(a, {}) for a in pca_calls["rand"][0]]
+    return {
+        "source": "benchmarks/elastic.py run()",
+        "n_nodes": el.N, "topology": "ring", "k_steps": 1,
+        "schedules": {name: (None if spec is None
+                             else dataclasses.asdict(spec))
+                      for name, spec in el.SCHEDULES.items()},
+        "fair": {
+            "steps": run["steps_fair"], "seed": run_fair["seed"],
+            "batch_per_node": kw(fair_calls, "ClassificationStream")[
+                "batch_per_node"],
+            "image_hw": _defaults(ClassificationStream)["image_hw"],
+            "full_batches": kw(fair_calls, "full")["n_batches"],
+            "rho": kw(fair_calls, "make_fair_problem")["rho"],
+            "hyper": dataclasses.asdict(GDAHyper(**kw(fair_calls,
+                                                      "GDAHyper"))),
+            "eval_every": kw(fair_calls, "_drive")["eval_every"]},
+        "pca": {
+            "steps": run["steps_pca"], "seed": run_pca["seed"],
+            "x0_seed": rand_args[0], "d": mb["d"], "r": mb["r"],
+            "m": mb["m"], "outlier_frac": mb["outlier_frac"],
+            "outlier_scale": mb["outlier_scale"],
+            "rho": kw(pca_calls, "make_robust_pca_problem")["rho"],
+            "hyper": dataclasses.asdict(GDAHyper(**kw(pca_calls,
+                                                      "GDAHyper"))),
+            "eval_every": kw(pca_calls, "_drive")["eval_every"]},
+    }
+
+
+def elastic_draws(el, rounds: int) -> dict:
+    """The uniforms behind every churn and straggler draw of ``el.run()``
+    for rounds 0 .. ``rounds`` - 1, from the JAX package's keys
+    (``ElasticJaxDraws``): ``churn`` leave / join (n,) per round, and
+    ``straggle`` per slot.  Every schedule of the benchmark draws from the
+    same seeds (ElasticSpec.seed and CommSpec.seed 0), so one record serves
+    them all; a schedule with other seeds or a drop rate raises."""
+    import numpy as np
+    from _jax_draws import ElasticJaxDraws
+
+    specs = [spec for spec in el.SCHEDULES.values() if spec is not None]
+    if any(spec.seed != 0 or spec.drop_rate > 0.0 for spec in specs):
+        raise RuntimeError("the record assumes seed 0 and no link drops")
+    n = el.N
+    strag = next(spec for spec in specs if spec.straggler_rate > 0.0)
+    churn = ElasticJaxDraws(specs[0])
+    faults = ElasticJaxDraws(strag)
+
+    def rows(source, stream):
+        return np.stack([source.uniform(stream, rnd, 0, (n,), "cpu").numpy()
+                         for rnd in range(rounds)])
+
+    return {"rounds": rounds,
+            "churn": {k: _encode(rows(churn, f"elastic/churn/{k}"))
+                      for k in ("leave", "join")},
+            "straggle": {slot: _encode(rows(faults, f"{slot}/chan/straggle"))
+                         for slot in ELASTIC_SLOTS}}
+
+
+def elastic_runs(el, perturb=None) -> dict:
+    """``el.run()``'s runs without ``us_per_step``, per problem;
+    ``perturb`` maps each single-node start (the CNN weights, the PCA
+    basis) before it is broadcast to the nodes."""
+    broadcast = el.broadcast_to_nodes
+    if perturb is not None:
+        el.broadcast_to_nodes = lambda tree, n: broadcast(perturb(tree), n)
+    try:
+        out = el.run()
+    finally:
+        el.broadcast_to_nodes = broadcast
+    keep = ("problem", "schedule", "curve", "final_M_t", "final_consensus",
+            "finite")
+    return {problem: [{k: r[k] for k in keep} for r in out[problem]]
+            for problem in ("fair_classification", "robust_pca")} | {
+        k: out[k] for k in ("leave_rejoin_Mt_ratio", "leave_rejoin_within_2x",
+                            "all_finite")}
+
+
+def elastic_tolerance(spread: dict) -> dict:
+    """The gates of the elastic curves, per problem and schedule (the
+    benchmark's curves carry no Stiefel residual: the port holds its own
+    to 1e-4 absolute)."""
+    out = {}
+    for problem, per_schedule in spread.items():
+        gaps = ELASTIC_CPU_GAP.get(problem, {})
+        out[problem] = tolerance(
+            per_schedule, {name: gaps.get(name, dict.fromkeys(
+                ELASTIC_QUANTITIES, 0.0)) for name in per_schedule},
+            residual=False)
+    return out
+
+
+def elastic_main() -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    el = benchmark("elastic")
+    s = elastic_settings(el)
+    params = el.fair.init_cnn(jax.random.PRNGKey(s["fair"]["seed"]),
+                              image_hw=s["fair"]["image_hw"])
+    batches, _ = el.rp.make_batches(
+        jax.random.PRNGKey(s["pca"]["seed"]), n_nodes=s["n_nodes"],
+        m=s["pca"]["m"], d=s["pca"]["d"], r=s["pca"]["r"],
+        outlier_frac=s["pca"]["outlier_frac"],
+        outlier_scale=s["pca"]["outlier_scale"])
+    x0 = el.GRASSMANN.rand(jax.random.PRNGKey(s["pca"]["x0_seed"]),
+                           s["pca"]["d"], s["pca"]["r"])
+    out = elastic_runs(el)
+    problems = ("fair_classification", "robust_pca")
+    sp = {p: {r["schedule"]: {key: [0.0] * len(r["curve"])
+                              for key in ELASTIC_QUANTITIES}
+              for r in out[p]} for p in problems}
+    for member in range(ENSEMBLE):
+        rng = np.random.default_rng(member + 1)
+
+        def perturb(tree):
+            return {k: v * jnp.asarray(1.0 + PERTURBATION
+                                       * rng.standard_normal(v.shape),
+                                       v.dtype) for k, v in tree.items()}
+
+        got = elastic_runs(el, perturb)
+        for p in problems:
+            for r, want in zip(got[p], out[p]):
+                if [a["live"] for a in r["curve"]] != [
+                        b["live"] for b in want["curve"]]:
+                    raise RuntimeError(f"{p} {r['schedule']}: membership "
+                                       "depends on the weights")
+            _ensemble_gaps(sp[p], [{"method": r["schedule"], **r}
+                                   for r in got[p]],
+                           out[p], ELASTIC_QUANTITIES)
+        print(f"elastic ensemble member {member + 1} of {ENSEMBLE} done",
+              flush=True)
+    rounds = max(s["fair"]["steps"], s["pca"]["steps"])
+    ELASTIC_OUT.write_text(json.dumps({
+        "settings": s, "spread": sp, "tolerance": elastic_tolerance(sp),
+        "init_params": {k: _encode(v) for k, v in sorted(params.items())},
+        "pca_batches": {"z": _encode(batches["z"])}, "pca_x0": _encode(x0),
+        "draws": elastic_draws(el, rounds), **out}, indent=1) + "\n")
+    print(f"wrote {ELASTIC_OUT}")
+
+
+TARGETS = {"fair": fair_main, "dro": dro_main, "robust_pca": pca_main,
+           "elastic": elastic_main}
 
 
 def main(argv=None) -> None:

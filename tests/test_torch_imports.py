@@ -32,6 +32,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.comms.elastic", "repro_torch.launch.elastic"} <= set(
+    names), names
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 bad = sorted(m for m in sys.modules
