@@ -97,7 +97,20 @@
    the static ring; every realized W_t of the contract sweep on the card
    symmetric, doubly stochastic to 1e-6, departed rows identity; and
    leave-and-rejoin at the main path's configuration (20 nodes, 28x28,
-   30 steps) beside the static ring, within 2x.  An elastic step launches
+   30 steps) beside the static ring, within 2x.  Then telemetry and
+   checkpoints (``repro_torch.launch.obs``): DRGDA at the main path's
+   configuration, exact ring and EF-int8, with telemetry off and on in
+   interleaved 50-step blocks (one counter flush a block): the overhead
+   and the counters' own host work timed alone, both final states bitwise equal (deterministic cuDNN), the counters'
+   bytes per hop within 1% of ``est_hop_bytes`` and of
+   ``wire_round_bytes``, the events valid, a non-flushing step free of
+   host syncs (``torch.cuda.set_sync_debug_mode("error")``), the phase
+   breakdown, each kernel's estimate of a step on the H100 roofline, one
+   step's launches as the profile asserts them with telemetry off and on;
+   a DRGDA state checkpointed on the card after 5 steps and resumed into
+   a fresh run, bitwise the 10-step run; and for each kernel table row the
+   port's analytical estimate (``obs/estimates.py``) beside this script's
+   count.  An elastic step launches
    no ring kernel (its W_t is applied by einsum).  Every
    robust-PCA, DRO and elastic run's launches are asserted: no stiefel_project and
    no fused_retract in a robust-PCA step, one grouped ring_mix call per
@@ -334,7 +347,9 @@ def run_case(name, calls, plain_calls, gate, costs, label,
     ``chain_calls``, where given: the calls a fused kernel replaces, timed
     beside it and held to the same gate."""
     import torch
-    outs = _flat([c() for c in calls])
+    from repro_torch.obs import estimates as obs_est
+    with obs_est.collect() as recorded:
+        outs = _flat([c() for c in calls])
     torch.cuda.synchronize()
     want = _flat([p() for p in plain_calls])
     if len(outs) != len(want):
@@ -383,10 +398,17 @@ def run_case(name, calls, plain_calls, gate, costs, label,
     if not ok:
         raise AssertionError(f"{name} {label}: outside its gate "
                              f"({gate_txt}), max_abs_err={err:.3e}")
+    # the port's analytical estimate of the same calls (obs/estimates.py),
+    # bounded on the same peak, beside this script's own count
+    est = recorded.snapshot().get(name, {"calls": 0, "ops": 0.0, "lds": 0.0,
+                                         "mem": 0.0})
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
-            "chain_ms": chain_ms, "chain_device_ms": chain_dev_ms}
+            "chain_ms": chain_ms, "chain_device_ms": chain_dev_ms,
+            "label": label, "cost": {"flops": flops, "bytes": nbytes},
+            "estimate": {**est, "bound_ms": bound(est["ops"], est["mem"],
+                                                  peak)[0]}}
 
 
 def bitwise(outs, want, err, scale):
@@ -1328,6 +1350,135 @@ def elastic_phase() -> dict:
     log(f"  launches {counts}")
     return counts
 
+# the telemetry path: DRGDA k = 1 over the exact ring and over EF-int8
+OBS_PATH = ("stiefel_project", "fused_retract", "ring_mix", "quant_mix")
+OBS_REPEATS = 10         # timed blocks of launch/obs.py's 50 steps per arm
+OBS_GATE = 0.01          # counter bytes/hop against the byte oracles
+
+
+def obs_phase(rows: dict) -> dict:
+    """Telemetry and checkpoints on the card (``repro_torch.obs``,
+    ``repro_torch.checkpoint``, through ``repro_torch.launch.obs``): DRGDA
+    at the main path's configuration (20 nodes, 28x28, ``"polar_fused"``,
+    k = 1) over the exact ring and over EF-int8 gossip, telemetry off and
+    on for the same steps.  Gates: the final states bitwise equal (under
+    deterministic cuDNN, where runs repeat); the counters' raw bytes per
+    hop within 1% of ``est_hop_bytes`` and their wire bytes within 1% of
+    ``wire_round_bytes``; the events validate; a step that does not flush
+    raises nothing under ``torch.cuda.set_sync_debug_mode("error")``; one
+    step launches ``STEP_LAUNCHES``'s kernels with telemetry off, and the
+    same with it on.  Then a DRGDA state saved from the card after 5 steps,
+    restored to the card into a fresh run and stepped 5 more: bitwise the
+    10-step run, counters equal (deterministic cuDNN).  Last, for each row
+    of the kernel table, the port's analytical estimate of the row's calls
+    (``obs/estimates.py``, recorded by the wrappers) beside this script's
+    count.  Returns the path's launch counts (set to 0 just before)."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import obs as launch_obs
+    from repro_torch.launch.fair import COMM_PRESETS, prepare
+    from repro_torch.obs import Telemetry, unpack
+
+    out = ROOT / "build" / "obs"
+    ops.reset_launch_counts()
+    for label, comm in (("full k=1", None),
+                        ("EF-int8 k=1", COMM_PRESETS["int8_ef"])):
+        tag = label.replace(" ", "_").replace("=", "")
+        res = launch_obs.run("cuda", comm=comm, repeats=OBS_REPEATS,
+                             out_dir=str(out / tag))
+        ph = res["phase_breakdown"]["us_per_call"]
+        log(f"  {label}: us/step off={res['us_per_step_off']:.1f} "
+            f"on={res['us_per_step_on']:.1f} (min of {OBS_REPEATS} blocks "
+            f"of {res['flush_every']}; off "
+            + "/".join(f"{t:.1f}" for t in res["us_per_step_off_all"])
+            + ", on " + "/".join(f"{t:.1f}" for t in res["us_per_step_on_all"])
+            + f") overhead={res['overhead_pct']:.2f}% (medians "
+            f"{res['overhead_median_pct']:.2f}%) counters' own host work="
+            f"{res['counter_cost']['us_per_step']:.2f} us/step (account "
+            f"{res['counter_cost']['account_us_per_step']:.2f} us + flush "
+            f"{res['counter_cost']['flush_us']:.1f} us / "
+            f"{res['flush_every']}; {res['counter_cost_pct']:.3f}% of off) "
+            f"bit_identical={res['bit_identical']} raw bytes/hop="
+            f"{res['raw_bytes_per_hop']:.1f} (est_hop_bytes "
+            f"{res['est_hop_bytes']:.1f}, err {res['raw_rel_err']:.2e}) wire "
+            f"bytes/hop={res['wire_bytes_per_hop']:.1f} (expected "
+            f"{res['wire_bytes_per_hop_expected']:.1f}, err "
+            f"{res['wire_rel_err']:.2e}) events={res['n_events']} "
+            f"sync-free step off/on={res['sync_free_step']['off']}/"
+            f"{res['sync_free_step']['on']} counters={res['counters']}")
+        log(f"  {label} phases (us, CUDA events over 20 calls; mix is slot "
+            f"x's through this gossip): "
+            + " ".join(f"{k}={v:.1f}" for k, v in ph.items()))
+        for name, rec in res["kernel_estimates"].items():
+            log(f"  {label} estimate {name}: calls={rec['calls']} "
+                f"ops={rec['ops']:.6g} lds={rec['lds']:.6g} "
+                f"mem={rec['mem']:.6g} {rec['roofline']['bound']}-bound on "
+                f"{rec['roofline']['hw']}, "
+                f"{rec['roofline']['time_s'] * 1e6:.3f} us")
+        bad = [what for what, ok in (
+            ("bit-identity", res["bit_identical"]),
+            ("raw bytes/hop", res["raw_rel_err"] <= OBS_GATE),
+            ("wire bytes/hop", res["wire_rel_err"] <= OBS_GATE),
+            ("events", res["n_events"] >= 2 + OBS_REPEATS),
+            ("sync-free step", res["sync_free_step"]["on"])) if not ok]
+        if bad:
+            raise AssertionError(f"obs {label}: {bad}")
+        for tel in (None, Telemetry(run=f"{tag}-launches",
+                                    out_dir=str(out / tag))):
+            run = prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
+                          k_steps=1, device="cuda", comm=comm, telemetry=tel)
+            before = ops.launch_counts()
+            run.opt.step(run.state, run.full)
+            torch.cuda.synchronize()
+            _check_launches(f"obs {label} telemetry "
+                            f"{'on' if tel else 'off'}", _launched(before),
+                            STEP_LAUNCHES[label])
+
+    with launch_obs.deterministic_cudnn():
+        def fresh():
+            return prepare("drgda", True, image_hw=28, n_nodes=N_NODES,
+                           k_steps=1, device="cuda", telemetry=Telemetry(
+                               run="resume", out_dir=str(out / "resume")))
+        ref = fresh()
+        state = ref.state
+        for t in range(10):
+            state, _ = ref.opt.step(state, ref.full)
+            if t == 4:
+                path = checkpoint.save(str(out / "ckpt"), 5, state)
+        run = fresh()
+        resumed = checkpoint.restore(str(out / "ckpt"), 5, run.state,
+                                     device="cuda")
+        on_card = all(t.is_cuda for t in launch_obs.state_tensors(resumed))
+        for _ in range(5):
+            resumed, _ = run.opt.step(resumed, run.full)
+        torch.cuda.synchronize()
+    same = launch_obs.bitwise_equal(resumed, state)
+    counters = unpack(resumed.obs) == unpack(state.obs)
+    log(f"  checkpoint {Path(path).name} ({Path(path).stat().st_size} "
+        f"bytes): restored on the card={on_card}, 5 + 5 steps bitwise the "
+        f"10-step run={same}, counters equal={counters}")
+    if not (on_card and same and counters and resumed.step == 10):
+        raise AssertionError("obs: the resumed run is not the 10-step run")
+
+    log("  estimates against this script's counts, per kernel table row "
+        "(the row's calls; bound at the row's peak):")
+    for name in KERNEL_META:
+        row = rows[name]
+        est, cost = row["estimate"], row["cost"]
+        log(f"    {name:20s} {row['label']:40s} estimate: calls="
+            f"{est['calls']} ops={est['ops']:.6g} lds={est['lds']:.6g} "
+            f"mem={est['mem']:.6g} bound={est['bound_ms']:.5f} ms | "
+            f"script: flops={cost['flops']:.6g} bytes={cost['bytes']:.6g} "
+            f"bound={row['bound_ms']:.5f} ms ({row['bound_by']})")
+    counts = ops.launch_counts()
+    missing = [n for n in OBS_PATH if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the obs path: "
+                             f"{missing}")
+    log(f"  launches {counts}")
+    return counts
+
 
 def own_kernels() -> re.Pattern:
     """A pattern that finds, in a profiler event's name, any ``__global__``
@@ -2138,6 +2289,8 @@ def main() -> int:
     paths["dro"] = dro_phase()
     log("elastic:")
     paths["elastic"] = elastic_phase()
+    log("obs:")
+    paths["obs"] = obs_phase(rows)
     log("profile:")
     from repro_torch.launch.fair import COMM_PRESETS
     int8 = COMM_PRESETS["int8_ef"]

@@ -20,8 +20,10 @@ one grouped ``ring_mix`` call, and ``GossipSpec.comm`` routes the mixes
 through the comms engine over the slots x, y, u and v, as in
 ``core/gda.py``.  The order of operations is the JAX package's.
 With ``GossipSpec.elastic`` set the mixes run through the elastic engine,
-to which each method registers the problem's manifold map.  Telemetry and
-the jitted ``make_step`` are not ported.
+to which each method registers the problem's manifold map.  Telemetry
+(``telemetry=``) counts every mix into the state's ``obs`` and flushes as
+in ``core/gda.py``, by the state's step (one cadence across GT-SRVR's
+``step`` and ``anchor_step``).
 """
 from __future__ import annotations
 
@@ -31,12 +33,15 @@ from typing import Any
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.comms.backend import resolve_backend
 from repro_torch.comms.layer import (CommState, make_mixer, maybe_engine,
                                      maybe_init_state)
 from repro_torch.core.gda import (GDAHyper, StepMetrics, _consensus,
-                                  _tree_consensus, _tree_mean_norm)
+                                  _tree_consensus, _tree_mean_norm,
+                                  flush_obs)
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.core.minimax import MinimaxProblem
+from repro_torch.obs.wire import Counters, wrap_mixer
 from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
@@ -75,28 +80,39 @@ def _metrics(loss, gx, gy, x, y, u) -> StepMetrics:
 
 
 class _Baseline:
-    """What the four methods share: the problem, the gossip and the comms
-    engine (``draws``: its draw source, as in ``DecentralizedGDA``)."""
+    """What the four methods share: the problem, the gossip, the comms
+    engine (``draws``: its draw source) and the telemetry, as in
+    ``DecentralizedGDA``."""
 
     #: gossip steps of every mix
     k = 1
 
     def __init__(self, problem: MinimaxProblem, gossip: GossipSpec,
-                 hyper, draws=None):
+                 hyper, draws=None, telemetry=None):
         self.problem, self.gossip, self.hyper = problem, gossip, hyper
+        self.backend = resolve_backend(gossip)
         self.engine = maybe_engine(gossip, draws=draws)
         if self.engine is not None:
             self.engine.register_manifolds({"x": problem.manifold_map})
+        self.telemetry = telemetry
 
     def _init_grads(self, x0: dict, y0: Tensor, batch0: Any):
+        """(gx, gy, comm0, obs0) at the initial point."""
         with torch.no_grad():
             _, gx, gy = _euclid_grads(self.problem, x0, y0, batch0)
         comm0 = maybe_init_state(self.engine,
                                  {"x": x0, "y": y0, "u": gx, "v": gy})
-        return gx, gy, comm0
+        obs0 = self.telemetry.init_counters(y0.device) \
+            if self.telemetry else None
+        return gx, gy, comm0, obs0
 
     def _mixer(self, state):
-        return make_mixer(self.gossip, self.engine, state.comm, state.step)
+        """(mix, comm_final, obs_final) of one step."""
+        mix, comm_final = make_mixer(self.gossip, self.engine, state.comm,
+                                     state.step)
+        mix, obs_final = wrap_mixer(mix, state.obs, self.gossip, self.engine,
+                                    self.backend, state.comm, state.step)
+        return mix, comm_final, obs_final
 
     def _descend(self, mix, x: dict, y: Tensor, dx: dict, dy: Tensor, h
                  ) -> tuple[dict, Tensor]:
@@ -122,6 +138,7 @@ class GTState:
     gy_prev: Tensor
     step: int = 0
     comm: CommState | None = None
+    obs: Counters | None = None
 
 
 class GTGDA(_Baseline):
@@ -132,26 +149,28 @@ class GTGDA(_Baseline):
     deterministic = True
 
     def __init__(self, problem: MinimaxProblem, gossip: GossipSpec,
-                 hyper: GDAHyper = GDAHyper(), draws=None):
-        super().__init__(problem, gossip, hyper, draws)
+                 hyper: GDAHyper = GDAHyper(), draws=None, telemetry=None):
+        super().__init__(problem, gossip, hyper, draws, telemetry)
 
     def init(self, x0: dict, y0: Tensor, batch0: Any) -> GTState:
-        gx, gy, comm0 = self._init_grads(x0, y0, batch0)
-        return GTState(x0, y0, gx, gy, _copy_tree(gx), gy.clone(), 0, comm0)
+        gx, gy, comm0, obs0 = self._init_grads(x0, y0, batch0)
+        return GTState(x0, y0, gx, gy, _copy_tree(gx), gy.clone(), 0, comm0,
+                       obs0)
 
     @torch.no_grad()
     def step(self, state: GTState, batch: Any
              ) -> tuple[GTState, StepMetrics]:
         h = self.hyper
-        mix, comm_final = self._mixer(state)
+        mix, comm_final, obs_final = self._mixer(state)
         x_new, y_new = self._descend(mix, state.x, state.y, state.u,
                                      state.v, h)
         loss, gx, gy = _euclid_grads(self.problem, x_new, y_new, batch)
         u_new = tree_map(lambda mu, g, gp: mu + g - gp,
                          mix("u", state.u, 1), gx, state.gx_prev)
         v_new = mix("v", state.v, 1) + gy - state.gy_prev
+        obs = flush_obs(self.telemetry, obs_final, state.step + 1)
         new = GTState(x_new, y_new, u_new, v_new, gx, gy, state.step + 1,
-                      comm_final())
+                      comm_final(), obs)
         return new, _metrics(loss, gx, gy, x_new, y_new, u_new)
 
 
@@ -177,6 +196,7 @@ class HSGDState:
     dy: Tensor
     step: int = 0
     comm: CommState | None = None
+    obs: Counters | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,19 +217,20 @@ class DMHSGD(_Baseline):
     deterministic = False
 
     def __init__(self, problem: MinimaxProblem, gossip: GossipSpec,
-                 hyper: HSGDHyper = HSGDHyper(), draws=None):
-        super().__init__(problem, gossip, hyper, draws)
+                 hyper: HSGDHyper = HSGDHyper(), draws=None,
+                 telemetry=None):
+        super().__init__(problem, gossip, hyper, draws, telemetry)
 
     def init(self, x0: dict, y0: Tensor, batch0: Any) -> HSGDState:
-        gx, gy, comm0 = self._init_grads(x0, y0, batch0)
+        gx, gy, comm0, obs0 = self._init_grads(x0, y0, batch0)
         return HSGDState(x0, y0, _copy_tree(x0), y0.clone(), gx, gy, 0,
-                         comm0)
+                         comm0, obs0)
 
     @torch.no_grad()
     def step(self, state: HSGDState, batch: Any
              ) -> tuple[HSGDState, StepMetrics]:
         h = self.hyper
-        mix, comm_final = self._mixer(state)
+        mix, comm_final, obs_final = self._mixer(state)
         loss, gx_cur, gy_cur = _euclid_grads(self.problem, state.x, state.y,
                                              batch)
         _, gx_old, gy_old = _euclid_grads(self.problem, state.x_prev,
@@ -220,8 +241,9 @@ class DMHSGD(_Baseline):
         dx = mix("u", dx, 1)
         dy = mix("v", dy, 1)
         x_new, y_new = self._descend(mix, state.x, state.y, dx, dy, h)
+        obs = flush_obs(self.telemetry, obs_final, state.step + 1)
         new = HSGDState(x_new, y_new, state.x, state.y, dx, dy,
-                        state.step + 1, comm_final())
+                        state.step + 1, comm_final(), obs)
         return new, _metrics(loss, gx_cur, gy_cur, x_new, y_new, dx)
 
 
@@ -244,6 +266,7 @@ class SRVRState:
     gy_est_prev: Tensor
     step: int = 0
     comm: CommState | None = None
+    obs: Counters | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,32 +291,35 @@ class GTSRVR(_Baseline):
     deterministic = False
 
     def __init__(self, problem: MinimaxProblem, gossip: GossipSpec,
-                 hyper: SRVRHyper = SRVRHyper(), draws=None):
-        super().__init__(problem, gossip, hyper, draws)
+                 hyper: SRVRHyper = SRVRHyper(), draws=None,
+                 telemetry=None):
+        super().__init__(problem, gossip, hyper, draws, telemetry)
 
     def init(self, x0: dict, y0: Tensor, anchor_batch: Any) -> SRVRState:
-        gx, gy, comm0 = self._init_grads(x0, y0, anchor_batch)
+        gx, gy, comm0, obs0 = self._init_grads(x0, y0, anchor_batch)
         return SRVRState(x0, y0, _copy_tree(x0), y0.clone(), gx, gy,
                          _copy_tree(gx), gy.clone(), _copy_tree(gx),
-                         gy.clone(), 0, comm0)
+                         gy.clone(), 0, comm0, obs0)
 
     def _update_params(self, state: SRVRState, gx_est: dict, gy_est: Tensor):
         h = self.hyper
-        mix, comm_final = self._mixer(state)
+        mix, comm_final, obs_final = self._mixer(state)
         u_new = tree_map(lambda mu, g, gp: mu + g - gp,
                          mix("u", state.u, 1), gx_est, state.gx_est_prev)
         v_new = mix("v", state.v, 1) + gy_est - state.gy_est_prev
         x_new, y_new = self._descend(mix, state.x, state.y, u_new, v_new, h)
-        return x_new, y_new, u_new, v_new, comm_final()
+        obs = flush_obs(self.telemetry, obs_final, state.step + 1)
+        return x_new, y_new, u_new, v_new, comm_final(), obs
 
     @torch.no_grad()
     def anchor_step(self, state: SRVRState, anchor_batch: Any
                     ) -> tuple[SRVRState, StepMetrics]:
         loss, gx, gy = _euclid_grads(self.problem, state.x, state.y,
                                      anchor_batch)
-        x_new, y_new, u_new, v_new, comm = self._update_params(state, gx, gy)
+        x_new, y_new, u_new, v_new, comm, obs = self._update_params(
+            state, gx, gy)
         new = SRVRState(x_new, y_new, state.x, state.y, gx, gy, u_new, v_new,
-                        gx, gy, state.step + 1, comm)
+                        gx, gy, state.step + 1, comm, obs)
         return new, _metrics(loss, gx, gy, x_new, y_new, u_new)
 
     @torch.no_grad()
@@ -306,10 +332,11 @@ class GTSRVR(_Baseline):
         gx_est = tree_map(lambda g, go, e: e + g - go,
                           gx_cur, gx_old, state.gx_est)
         gy_est = state.gy_est + gy_cur - gy_old
-        x_new, y_new, u_new, v_new, comm = self._update_params(
+        x_new, y_new, u_new, v_new, comm, obs = self._update_params(
             state, gx_est, gy_est)
         new = SRVRState(x_new, y_new, state.x, state.y, gx_est, gy_est,
-                        u_new, v_new, gx_est, gy_est, state.step + 1, comm)
+                        u_new, v_new, gx_est, gy_est, state.step + 1, comm,
+                        obs)
         return new, _metrics(loss, gx_cur, gy_cur, x_new, y_new, u_new)
 
 

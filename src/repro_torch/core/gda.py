@@ -29,21 +29,29 @@ With ``GossipSpec.comm`` set, every mix runs through the comms engine
 x, y, u and v, and whose draws are keyed by the step.  With
 ``GossipSpec.elastic`` set, the engine is the elastic one
 (``comms/elastic.py``), to which the optimizer registers the problem's
-manifold map for the rejoin protocol.  Telemetry is not ported.
+manifold map for the rejoin protocol.  With a ``telemetry``
+(``repro_torch.obs.Telemetry``) every mix is counted into ``GDAState.obs``
+(``obs/wire.py``) and the counters are flushed to the event log every
+``flush_every`` steps, by the state's Python-int step; the counters never
+touch the update, so a step with telemetry is bitwise the step without.
+The JAX package's ``make_step``/``make_obs_step`` choose between jitted
+executables, which an eager port does not have: ``step`` is the step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.comms.backend import resolve_backend
 from repro_torch.comms.layer import (CommState, make_mixer, maybe_engine,
                                      maybe_init_state)
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.core.minimax import MinimaxProblem
 from repro_torch.geometry import check_retraction_name, tangent_project_tree
+from repro_torch.obs.wire import Counters, wrap_mixer
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -72,6 +80,7 @@ class GDAState:
     gy_prev: Tensor    # last grad_y
     step: int = 0
     comm: CommState | None = None   # comms-engine memory (GossipSpec.comm)
+    obs: Counters | None = None     # wire counters (with telemetry)
 
 
 @dataclasses.dataclass
@@ -91,20 +100,24 @@ class DecentralizedGDA:
     deterministic = True
 
     def __init__(self, problem: MinimaxProblem, gossip: GossipSpec,
-                 hyper: GDAHyper = GDAHyper(), draws=None):
+                 hyper: GDAHyper = GDAHyper(), draws=None, telemetry=None):
         """``draws``: the comms engine's draw source (default: one seeded
-        with ``gossip.comm.seed``); unused without ``gossip.comm``."""
+        with ``gossip.comm.seed``); unused without ``gossip.comm``.
+        ``telemetry``: a ``repro_torch.obs.Telemetry``, or None to run
+        without counters."""
         self.problem = problem
         self.gossip = gossip
         self.hyper = hyper
         check_retraction_name(hyper.retraction)
         self.k = hyper.k_override if hyper.k_override is not None \
             else gossip.k
+        self.backend = resolve_backend(gossip)
         self.engine = maybe_engine(gossip, draws=draws)
         if self.engine is not None:
             # the elastic join protocol projects a rejoining node's
             # consensus-mean x re-init through the problem's geometry
             self.engine.register_manifolds({"x": problem.manifold_map})
+        self.telemetry = telemetry
 
     def init(self, x0: dict, y0: Tensor, batch0: Any) -> GDAState:
         """x0/y0 node-stacked; u_0 = grad_x f_i(x_0, y_0; B_0), v_0 likewise."""
@@ -112,9 +125,11 @@ class DecentralizedGDA:
             _, rgx, gy = _vmapped_loss_and_rgrads(self.problem, x0, y0, batch0)
         comm0 = maybe_init_state(self.engine,
                                  {"x": x0, "y": y0, "u": rgx, "v": gy})
+        obs0 = self.telemetry.init_counters(y0.device) \
+            if self.telemetry else None
         return GDAState(x=x0, y=y0, u=rgx, v=gy,
                         gx_prev=tree_map(torch.clone, rgx),
-                        gy_prev=gy.clone(), step=0, comm=comm0)
+                        gy_prev=gy.clone(), step=0, comm=comm0, obs=obs0)
 
     @torch.no_grad()
     def step(self, state: GDAState, batch: Any
@@ -122,6 +137,8 @@ class DecentralizedGDA:
         h, k = self.hyper, self.k
         mix, comm_final = make_mixer(self.gossip, self.engine, state.comm,
                                      state.step)
+        mix, obs_final = wrap_mixer(mix, state.obs, self.gossip, self.engine,
+                                    self.backend, state.comm, state.step)
 
         # ---- step 4: Riemannian consensus + tracked descent on x ----------
         mixed_x = mix("x", state.x, k)
@@ -148,9 +165,11 @@ class DecentralizedGDA:
                          mix("u", state.u, k), rgx_new, state.gx_prev)
         v_new = mix("v", state.v, 1) + gy_new - state.gy_prev
 
+        obs_new = flush_obs(self.telemetry, obs_final, state.step + 1)
         new_state = GDAState(x=x_new, y=y_new, u=u_new, v=v_new,
                              gx_prev=rgx_new, gy_prev=gy_new,
-                             step=state.step + 1, comm=comm_final())
+                             step=state.step + 1, comm=comm_final(),
+                             obs=obs_new)
         metrics = StepMetrics(
             loss=loss_new.mean(),
             grad_norm_x=_tree_mean_norm(rgx_new),
@@ -180,6 +199,15 @@ class DRSGDA(DecentralizedGDA):
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+
+def flush_obs(telemetry, obs_final: Callable, step: int):
+    """The step's final counters, flushed by ``telemetry`` (if any) as the
+    counters of ``step``."""
+    obs = obs_final()
+    if telemetry is not None:
+        telemetry.flush_counters(obs, step)
+    return obs
 
 
 def _vmapped_loss_and_rgrads(problem: MinimaxProblem, x: dict, y: Tensor,

@@ -18,7 +18,7 @@ from torch.func import vmap
 
 from repro_torch.core.minimax import MinimaxProblem
 from repro_torch.geometry import tangent_project_tree
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
@@ -69,6 +69,21 @@ def convergence_metric(problem: MinimaxProblem, x_stacked: dict,
         "dist_y_star": dist_y,
         "stiefel_residual": _feasibility_residual(problem, x_stacked),
     }
+
+
+@torch.no_grad()
+def per_leaf_drift(problem: MinimaxProblem, x_stacked: dict,
+                   method: str = "eigh") -> dict[str, Tensor]:
+    """Cross-node drift per leaf: mean_i dist(x_i, x_hat) under each leaf's
+    own geometry.  Keys are '/'-joined leaf paths (the telemetry dashboard
+    streams these next to the Euclidean consensus term of M_t)."""
+    paths, maps, _ = tree_flatten_with_path(problem.manifold_map)
+    out: dict[str, Tensor] = {}
+    for path, m, xs in zip(paths, maps,
+                           tree_flatten_with_path(x_stacked)[1]):
+        x_hat = m.consensus_mean(xs, method=method)
+        out[path or "param"] = vmap(lambda xi: m.dist(xi, x_hat))(xs).mean()
+    return out
 
 
 def _feasibility_residual(problem: MinimaxProblem, x_stacked: dict) -> Tensor:

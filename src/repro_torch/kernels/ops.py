@@ -9,7 +9,11 @@ payload, or than float32/bfloat16 for attention; too many nodes; a head
 dim or a Stiefel r above 256) raises, and so does any other device.  The
 wrappers own the operand checks, flattening and contiguity, as the JAX
 package's ``kernels/ops.py`` does; the kernel modules only allocate,
-launch and count (:func:`launch_counts`).
+launch and count (:func:`launch_counts`).  Inside an estimates scope
+(``repro_torch.obs.estimates.collect``) every wrapper also records the
+call's analytical cost, under the JAX package's kernel name and formula,
+on either device: one record per grouped call of up to 16 leaves, the sum
+over its leaves.  Outside one it works out no estimate.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import math
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import leaves as _leaves
 from repro_torch.kernels import multi_hop_mix as _mh
 from repro_torch.kernels import paged_decode as _pd
 from repro_torch.kernels import quant_mix as _qm
@@ -25,6 +30,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import retract as _rt
 from repro_torch.kernels import ring_mix as _rm
 from repro_torch.kernels import stiefel_project as _sp
+from repro_torch.obs import estimates as _est
 
 Tensor = torch.Tensor
 
@@ -40,6 +46,9 @@ _KERNELS = {"stiefel_project": (_sp, "launches"),
 _MAX_GRID_YZ = 65535      # CUDA's limit on grid.y / grid.z
 _MAX_HEAD_DIM = 256       # the attention kernels' largest hd / hdv
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
+# the query block the JAX package's flash-attention estimate reads (its
+# DEFAULT_BLOCK_Q; the estimate counts the work of that blocking)
+_EST_BLOCK_Q = 128
 
 
 def launch_counts() -> dict[str, int]:
@@ -51,6 +60,20 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _KERNELS.values():
         setattr(mod, attr, 0)
+
+
+def _record(name: str, leaf_ests) -> None:
+    """One :mod:`repro_torch.obs.estimates` record per grouped call: the sum
+    of the leaves' estimates (``leaf_ests()``, called only inside a
+    ``collect`` scope), for every ``MAX_LEAVES`` leaves."""
+    if not _est.collecting():
+        return
+    ests = leaf_ests()
+    for at in range(0, len(ests), _leaves.MAX_LEAVES):
+        total = _est.Estimates()
+        for e in ests[at:at + _leaves.MAX_LEAVES]:
+            total = total + e
+        _est.record(name, total)
 
 
 def _on_card(name: str, *ts: Tensor, dtypes=None) -> bool:
@@ -103,6 +126,9 @@ def stiefel_project_leaves(xs: list[Tensor], gs: list[Tensor]
         raise ValueError(f"{name}: want equal, non-empty lists of points "
                          f"and directions")
     shapes = [_batched(name, x, g) for x, g in zip(xs, gs)]
+    _record(name, lambda: [
+        _est.stiefel_project_est(d, r, lead=b, itemsize=x.element_size())
+        for (b, d, r), x in zip(shapes, xs)])
     if not _on_card(name, *xs, *gs):
         return [ref.stiefel_project_ref(x, g) for x, g in zip(xs, gs)]
     outs = _sp.launch([x.reshape(s).contiguous() for x, s in zip(xs, shapes)],
@@ -130,6 +156,8 @@ def fused_retract(x: Tensor, g: Tensor, *,
     batch, d, r = _batched("fused_retract", x, g)
     if ns_iters < 0:
         raise ValueError(f"fused_retract: ns_iters={ns_iters} < 0")
+    _record("fused_retract", lambda: [_est.fused_retract_est(
+        d, r, ns_iters=ns_iters, lead=batch, itemsize=x.element_size())])
     if not _on_card("fused_retract", x, g):
         return ref.fused_retract_ref(x, g, ns_iters=ns_iters)
     if r > _rt.MAX_R:
@@ -174,7 +202,10 @@ def ring_mix_leaves(xs: list[Tensor], *, w_self: float,
     on one device).  Returns a list of the same shapes.  On the card, ONE
     launch for every 16 leaves (``leaves.MAX_LEAVES``), whose outputs are
     views of one buffer."""
-    if not _node_leaves("ring_mix", xs):
+    card = _node_leaves("ring_mix", xs)
+    _record("ring_mix", lambda: [
+        _est.ring_mix_est(x.numel(), itemsize=x.element_size()) for x in xs])
+    if not card:
         return [ref.ring_mix_ref(x, x.roll(1, 0), x.roll(-1, 0), w_self,
                                  w_side) for x in xs]
     return _rm.launch([x.contiguous() for x in xs], w_self, w_side)
@@ -195,7 +226,12 @@ def multi_hop_mix_leaves(xs: list[Tensor], *, hops: int, w_self: float,
     package's halo-panel oracle on the wrapped panel."""
     if hops < 1:
         raise ValueError(f"multi_hop_mix: hops={hops} < 1")
-    if not _node_leaves("multi_hop_mix", xs):
+    card = _node_leaves("multi_hop_mix", xs)
+    # the JAX package's halo panel: n + 2 hops rows
+    _record("multi_hop_mix", lambda: [_est.multi_hop_mix_est(
+        x.shape[0] + 2 * hops, x.numel() // x.shape[0], hops=hops,
+        out_rows=x.shape[0], itemsize=x.element_size()) for x in xs])
+    if not card:
         return [ref.multi_hop_mix_ref(
             ref.ring_panel(x, hops), hops=hops, out_rows=x.shape[0],
             halo=hops, w_self=w_self, w_side=w_side).reshape(x.shape)
@@ -262,6 +298,10 @@ def quant_mix_leaves(qs: list[Tensor], scales: list[Tensor], *,
                                  f"{q2.numel()} elements, got shape "
                                  f"{tuple(b.shape)}")
             bases.append(b.reshape(n, -1))
+    # the int8 hop of each leaf, as the JAX package counts it; its exact hop
+    # of the base is a roll there, which records nothing
+    _record(name, lambda: [_est.quant_mix_est(n, q2.shape[1])
+                           for q2, _ in flat])
     card = _on_card(name, *(q for q, _ in flat), *(s for _, s in flat),
                     *(bases or ()),
                     dtypes=(torch.int8,) * len(flat)
@@ -318,6 +358,9 @@ def multi_hop_mix_quant_leaves(qs: list[Tensor], scales: list[Tensor], *,
             raise ValueError(f"{name}: leaves of {n} and {nq} nodes in one "
                              f"call")
         flat.append((q.reshape(n, f), s))
+    _record(name, lambda: [
+        _est.multi_hop_mix_est(n + 2 * hops, q2.shape[1], hops=hops,
+                               out_rows=n, quant=True) for q2, _ in flat])
     if not _on_card(name, *(q for q, _ in flat), *(s for _, s in flat),
                     dtypes=(torch.int8,) * len(flat)
                     + (torch.float32,) * len(flat)):
@@ -398,6 +441,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         kv_positions = torch.arange(t, dtype=torch.int32,
                                     device=q.device).expand(b, t)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    _record("flash_attention", lambda: [_est.flash_attention_est(
+        b, s, t, h, hd, causal=causal, window=window, block_q=_EST_BLOCK_Q,
+        itemsize=q.element_size())])
     if not _attn_card("flash_attention", q, (q, k, v),
                       (q_positions, kv_positions)):
         return ref.blockwise_attention(
@@ -438,6 +484,9 @@ def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,
             f"{tuple(seq_lens.shape)}")
     win = _window("paged_decode_attention", window)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    _record("paged_decode", lambda: [_est.paged_decode_est(
+        s_slots, h, hkv, hd, block_table.shape[1], ps,
+        itemsize=q.element_size())])
     if not _attn_card("paged_decode_attention", q, (q, k_pages, v_pages),
                       (block_table, seq_lens)):
         return ref.paged_decode_attention_ref(

@@ -95,7 +95,7 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
             comm: CommSpec | None = None, draws=None,
             params: dict | None = None, problem=None,
             stream: ClassificationStream | None = None,
-            elastic=None) -> Run:
+            elastic=None, telemetry=None) -> Run:
     """Build the stream, the CNN, the problem and optimizer ``name`` (a key
     of ``OPTIMIZERS``), and initialize its state.
 
@@ -111,7 +111,8 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
     the initial weights that returns the problem (default: the fair
     problem at ``RHO``).  ``stream``: the data (default: the classification
     stream of ``n_nodes``, ``BATCH_PER_NODE``, ``image_hw`` and ``seed``;
-    a given one sets ``n_nodes`` and ``image_hw``).  GT-SRVR, like the
+    a given one sets ``n_nodes`` and ``image_hw``).  ``telemetry``: the
+    optimizer's ``repro_torch.obs.Telemetry`` (default none).  GT-SRVR, like the
     others, is initialized on the first batch.  Sets
     ``torch.backends.cuda.matmul.allow_tf32``
     and ``torch.backends.cudnn.allow_tf32`` to False: the system is fp32
@@ -141,7 +142,8 @@ def prepare(name: str, deterministic: bool, seed: int = 0,
     spec = GossipSpec(topology="ring", n_nodes=n_nodes, k_steps=k_steps,
                       comm=comm, elastic=elastic)
     hyper = hyper or default_hyper(name, retraction)
-    opt = OPTIMIZERS[name](problem, spec, hyper, draws=draws)
+    opt = OPTIMIZERS[name](problem, spec, hyper, draws=draws,
+                           telemetry=telemetry)
 
     full = batch_to_torch(stream.full(n_batches=FULL_BATCHES), dev)
     state = opt.init(x0, y0, full if deterministic

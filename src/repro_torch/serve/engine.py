@@ -16,11 +16,17 @@ masked until the slot's own tokens overwrite them.  Sampling is greedy
 ``argmax`` at temperature 0, else a categorical draw from the engine's
 ``torch.Generator`` (seeded with ``seed``).
 
+With a ``telemetry`` (``repro_torch.obs.Telemetry``), as in the JAX
+package: a ``serve.prefill`` span around each admission's prefill, a
+``serve.step`` span around each decode wave (up to the sampled tokens
+reaching the host) and a ``serve`` event per admission.
+
 :func:`serve_requests` is the serving loop that wires this engine to a
 :class:`~repro_torch.serve.scheduler.ContinuousBatchingScheduler`.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -50,13 +56,14 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  kv_spec: PagedKVSpec | None = None, n_slots: int = 4,
-                 temperature: float = 0.0, seed: int = 0):
+                 temperature: float = 0.0, seed: int = 0, telemetry=None):
         kv_cache.validate_config(cfg)
         self.cfg = cfg
         self.params = params
         self.spec = kv_spec or PagedKVSpec()
         self.n_slots = n_slots
         self.temperature = float(temperature)
+        self.telemetry = telemetry
         self.device = params["embed"].device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.pools = kv_cache.init_pools(cfg, self.spec, params["embed"].dtype,
@@ -74,6 +81,11 @@ class ServeEngine:
     def _to_device(self, a: np.ndarray) -> Tensor:
         return torch.from_numpy(a.copy()).to(self.device)
 
+    def _span(self, name: str):
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.span(name)
+
     # -- slot lifecycle -----------------------------------------------------
 
     def admit(self, slot: int, prompt: list[int], pages: list[int]) -> int:
@@ -88,15 +100,16 @@ class ServeEngine:
 
         tokens = np.zeros((1, cache_len), np.int64)
         tokens[0, :length] = prompt
-        logits, _, caches = transformer.forward(
-            self.params, self.cfg, self._to_device(tokens), mode="prefill",
-            cache_len=cache_len)
-        self.last_logits = logits[0, length - 1]
-        first = int(sample_tokens(self.last_logits[None], self.generator,
-                            self.temperature)[0])
-        kv_cache.scatter_prompt(
-            self.pools, caches, self._to_device(np.asarray(pages[:npg])),
-            cfg=self.cfg, page_size=ps)
+        with self._span("serve.prefill"):
+            logits, _, caches = transformer.forward(
+                self.params, self.cfg, self._to_device(tokens),
+                mode="prefill", cache_len=cache_len)
+            self.last_logits = logits[0, length - 1]
+            first = int(sample_tokens(self.last_logits[None], self.generator,
+                                      self.temperature)[0])
+            kv_cache.scatter_prompt(
+                self.pools, caches, self._to_device(np.asarray(pages[:npg])),
+                cfg=self.cfg, page_size=ps)
 
         self._bt[slot] = -1
         self._bt[slot, :len(pages)] = pages
@@ -104,6 +117,10 @@ class ServeEngine:
         self._tokens[slot] = first
         self._active[slot] = True
         self.tokens_generated += 1
+        if self.telemetry is not None:
+            self.telemetry.event("serve", {
+                "kind": "admit", "slot": slot, "prompt_len": length,
+                "pages": len(pages)})
         return first
 
     def release(self, slot: int) -> None:
@@ -118,13 +135,14 @@ class ServeEngine:
         """One fused decode step for every slot; returns the (n_slots,)
         sampled tokens (garbage at inactive slots: callers consult the
         scheduler for liveness)."""
-        logits, self.pools = transformer.decode_step(
-            self.params, self.cfg, self._to_device(self._tokens),
-            (self._to_device(self._positions), self._to_device(self._bt)),
-            self.pools)
-        self.last_logits = logits
-        nxt = sample_tokens(logits, self.generator, self.temperature)
-        nxt = nxt.cpu().numpy()
+        with self._span("serve.step"):
+            logits, self.pools = transformer.decode_step(
+                self.params, self.cfg, self._to_device(self._tokens),
+                (self._to_device(self._positions), self._to_device(self._bt)),
+                self.pools)
+            self.last_logits = logits
+            nxt = sample_tokens(logits, self.generator, self.temperature)
+            nxt = nxt.cpu().numpy()
         act = self._active
         self._tokens[act] = nxt[act]
         self._positions[act] += 1

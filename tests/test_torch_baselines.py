@@ -176,7 +176,7 @@ def _port_srvr_state(js):
     """The JAX package's SRVRState (with its comms memory) as the port's."""
     fields = {f.name: _port_slot(getattr(js, f.name))
               for f in dataclasses.fields(tb.SRVRState)
-              if f.name not in ("step", "comm")}
+              if f.name not in ("step", "comm", "obs")}
     hats = {slot: jax.tree.map(np.asarray, t)
             for slot, t in js.comm.hats.items()}
     return tb.SRVRState(**fields, step=int(js.step),

@@ -32,8 +32,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-assert {"repro_torch.comms.elastic", "repro_torch.launch.elastic"} <= set(
-    names), names
+assert {"repro_torch.comms.elastic", "repro_torch.launch.elastic",
+        "repro_torch.checkpoint", "repro_torch.launch.roofline",
+        "repro_torch.launch.obs"} | {
+    "repro_torch.obs." + m for m in ("events", "trace", "estimates", "wire",
+                                     "telemetry")} <= set(names), names
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 bad = sorted(m for m in sys.modules
