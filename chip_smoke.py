@@ -5,7 +5,7 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and turns TF32 off for matmuls and cuDNN.
-2. Builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. Builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time.
 3. Kernel phase: every kernel against its plain PyTorch version on the card,
    at the shapes one main-path step gives it and at stress shapes, with its
@@ -46,6 +46,13 @@
    to 288, one empty) and at 64 slots of 2048 tokens (no PyTorch call
    gathers through a block table).  Query rows without keys and empty
    slots must be exact zeros.
+   The attention backward kernel (``flash_attention_bwd``, no TPU
+   counterpart) against ``ref.attention_backward`` (1e-5 relative to the
+   largest plain value) at the trainer's shape (B = 32, S = T = 63, GQA
+   9:3, fp32), with a window, and at S = T = 2048, beside SDPA's backward
+   (``torch.autograd.grad`` of one causal SDPA call), bound at the 165
+   TFLOP/s of fp32 products on the tensor cores (3xTF32); every case
+   repeats bit for bit, rows without keys pass exact zeros, bf16 raises.
    Then the geometries: Grassmann (polar and QR), oblique, sphere and a
    Product of all five on node-stacked (20, 784, 64) and (20, 20, 3) inputs
    from a seed, every op on the card against the CPU (1e-5 relative; dist
@@ -141,10 +148,26 @@
    device busy share of a wave and of one prefill of 256 tokens (host wall,
    CUDA events, profiler device time, the kernels that take the most),
    then the SMOKE config's engine on the card against the CPU.
-   This phase runs last, after the main path's profile and agreement.
-6. Prints the kernel table as one JSON line (``launches`` from the path a
-   kernel belongs to, ``path_launches`` from every path), the card line,
-   and last ``{"ok": true, "device": {...}}``.
+   This phase runs after the main path's profile and agreement.
+6. LM training (``repro_torch.launch.train``), after serving, as its
+   full-width states take half the card: the JAX package's recorded run
+   (``tests/data/lm_reference.json``: smollm-135m at its published widths
+   cut to 2 layers, 4 nodes, DRSGDA, 10 steps, from
+   ``convert.lm_params_from_seed``) held at every step's loss,
+   grad_norm_x and consensus_x and at M_t and the Stiefel residual of
+   steps 5 and 10 within the gates the file records; the CLI at full
+   width (30 layers, 8 nodes, 4 x 64 tokens a node, its default hyper)
+   for 20 steps with ``--eval-every 10``, telemetry and one checkpoint,
+   exiting 0 under the JAX success rule; in both runs the launches of
+   ``flash_attention``, ``flash_attention_bwd``, ``stiefel_project`` and
+   ``ring_mix`` as the code derives them (``_train_launches``) and no call
+   of a plain attention version; then the full-width step's median wall,
+   its polar retraction alone, and one profiled step (device time, busy
+   share, top kernels).
+7. Prints the kernel table as one JSON line (``launches`` from the path a
+   kernel belongs to, the backward kernel's from the LM training path,
+   ``path_launches`` from every path), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It needs a CUDA device and the repository's ``src/`` beside it.
@@ -193,6 +216,11 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:80"),
     "paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
                      "src/repro/kernels/paged_decode.py:98"),
+    # no TPU kernel: the JAX package differentiates its plain attention
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/"
+                            "flash_attention_bwd.cu",
+                            "src/repro/kernels/ops.py:95 (no TPU kernel: "
+                            "jax.grad of ref.blockwise_attention)"),
 }
 # the path each kernel belongs to (its launches in the table come from it)
 FULL_PATH = ("stiefel_project", "fused_retract", "ring_mix", "multi_hop_mix")
@@ -200,6 +228,7 @@ INT8_PATH = ("stiefel_project", "fused_retract", "quant_mix",
              "multi_hop_mix_quant")
 SERVE_PATH = ("flash_attention", "paged_decode")
 BASELINE_PATH = ("stiefel_project", "ring_mix", "quant_mix")
+TRAIN_PATH = ("flash_attention_bwd",)
 
 # Main-path geometry: 20 nodes, 28x28x1 images, init_cnn's widths.
 N_NODES = 20
@@ -1463,7 +1492,8 @@ def obs_phase(rows: dict) -> dict:
 
     log("  estimates against this script's counts, per kernel table row "
         "(the row's calls; bound at the row's peak):")
-    for name in KERNEL_META:
+    # the backward kernel has no TPU counterpart, so no JAX formula
+    for name in (n for n in KERNEL_META if n not in TRAIN_PATH):
         row = rows[name]
         est, cost = row["estimate"], row["cost"]
         log(f"    {name:20s} {row['label']:40s} estimate: calls="
@@ -1965,6 +1995,361 @@ def attention_kernel_phase(device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# LM training: the attention gradient and the trainer
+# ---------------------------------------------------------------------------
+
+# the trainer's attention at the CLI defaults: 8 nodes x 4 sequences folded
+# into B, 63 positions (64 tokens, the targets shifted off), smollm-135m's
+# heads
+TRAIN_NODES, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 64
+TRAIN_STEPS, TRAIN_EVAL_EVERY = 20, 10
+# the backward kernel against ref.attention_backward: fp32 on the CUDA
+# cores, sums over up to 2048 keys and 3 query heads in another order than
+# the plain version's GEMMs (first card call: 8.1e-7 at most)
+BWD_GATE = 1e-5     # relative to the largest |plain| value of dq, dk, dv
+
+
+def _bwd_cost(q, k, v, mask):
+    """The least work of the gradient, per usable (query, key) pair and
+    query head: the five products q.k, d_out.v, P^T d_out, dS k and
+    dS^T q, 2 (3 hd + 2 hdv) flops (the kernel recomputes q.k and d_out.v
+    in more passes than this); q, k, v, out, d_out and the positions read
+    once, dq, dk, dv written once."""
+    b, s, h, hd = q.shape
+    hdv = v.shape[-1]
+    flops = 2 * (3 * hd + 2 * hdv) * h * float(mask.sum())
+    nbytes = ((2 * (q.numel() + k.numel() + v.numel()) + 2 * b * s * h * hdv)
+              * 4 + 4 * (b * s + b * k.shape[1]))
+    return flops, nbytes
+
+
+def _sdpa_backward(q, k, v, d_out):
+    """SDPA's backward (``torch.autograd.grad`` of one causal
+    ``scaled_dot_product_attention`` call, its graph built here, outside the
+    timed call) in the port's layout: the library's attention gradient."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    go = d_out.transpose(1, 2).contiguous()
+    return lambda: [g.transpose(1, 2) for g in torch.autograd.grad(
+        out, (qt, kt, vt), go, retain_graph=True)]
+
+
+def attention_backward_phase(device="cuda") -> dict:
+    """The attention backward kernel against ``ref.attention_backward`` at
+    the trainer's shape, with a window, and at S=T=2048 (GQA 9:3, fp32),
+    beside SDPA's backward where the mask is the plain causal one; bitwise
+    repeats; rows without keys pass zero gradient; bf16 raises.  Returns
+    the table row (the trainer's shape)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = {}
+    for label, b, s, window in (
+            (f"trainer B={TRAIN_NODES * TRAIN_BATCH} S=T={TRAIN_SEQ - 1}",
+             TRAIN_NODES * TRAIN_BATCH, TRAIN_SEQ - 1, None),
+            ("S=T=512 window 48", 2, 512, 48),
+            ("stress S=T=2048", 1, 2048, None)):
+        q = torch.randn((b, s, N_HEADS, HEAD_DIM), generator=gen,
+                        device=device)
+        k = torch.randn((b, s, N_KV_HEADS, HEAD_DIM), generator=gen,
+                        device=device)
+        v = torch.randn((b, s, N_KV_HEADS, HEAD_DIM), generator=gen,
+                        device=device)
+        d_out = torch.randn((b, s, N_HEADS, HEAD_DIM), generator=gen,
+                            device=device)
+        out = ops.flash_attention(q, k, v, window=window)
+        pos = torch.arange(s, dtype=torch.int32, device=device)[None]
+        mask = _attn_mask(pos, pos, True, window).expand(b, s, s)
+        args = (q, k, v, out, d_out)
+        row = run_case(
+            "flash_attention_bwd",
+            [lambda: ops.flash_attention_backward(*args, window=window)],
+            [lambda: ref.attention_backward(*args, window=window)],
+            relative(BWD_GATE), [_bwd_cost(q, k, v, mask)], label,
+            None if window else [_sdpa_backward(q, k, v, d_out)],
+            peak=PEAK_FLOPS_TF32X3, lib_gate=1e-3)
+        first = ops.flash_attention_backward(*args, window=window)
+        again = ops.flash_attention_backward(*args, window=window)
+        if not all(torch.equal(a, b_) for a, b_ in zip(first, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two calls "
+                                 f"differ")
+        if label.startswith("trainer"):
+            rows["flash_attention_bwd"] = row
+    log("  flash_attention_bwd: every case repeats bit for bit")
+    # kv positions of -1: the first 64 queries have no usable key
+    q = torch.randn((2, 256, N_HEADS, HEAD_DIM), generator=gen,
+                    device=device)
+    kv = torch.randn((2, 256, N_KV_HEADS, HEAD_DIM), generator=gen,
+                     device=device)
+    pos = torch.arange(256, dtype=torch.int32, device=device)[None]
+    kvpos = torch.where(pos < 64, -1, pos)
+    kw = dict(q_positions=pos, kv_positions=kvpos)
+    out = ops.flash_attention(q, kv, kv, **kw)
+    d_out = torch.randn(out.shape, generator=gen, device=device)
+    got = ops.flash_attention_backward(q, kv, kv, out, d_out, **kw)
+    want = ref.attention_backward(q, kv, kv, out, d_out, **kw)
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    if not (bool(torch.all(got[0][:, :64] == 0)) and err <= BWD_GATE * scale):
+        raise AssertionError(f"flash_attention_bwd: rows without keys pass "
+                             f"gradient, or err {err:.3e}")
+    log(f"  flash_attention_bwd kv positions -1: rows without keys pass "
+        f"exact zeros (max_abs_err={err:.3e})")
+    try:
+        ops.flash_attention_backward(*(x.to(torch.bfloat16) for x in
+                                       (q, kv, kv, out, d_out)), **kw)
+    except TypeError as exc:
+        log(f"  bf16 raises: {exc}")
+    else:
+        raise AssertionError("flash_attention_bwd took bf16")
+    torch.cuda.synchronize()
+    return rows
+
+
+def _train_launches(cfg, steps: int, metric_calls: int):
+    """The trainer's launches, derived from the code: (per step, in all)
+    for ``steps`` DRSGDA steps after the init and ``metric_calls``
+    ``convergence_metric`` calls.  A gradient runs the forward kernel once
+    and the backward kernels twice (dq, then dk/dv) per layer and projects
+    the Stiefel tree in one grouped call (``stiefel_project_leaves``: one
+    launch per 16 on-chip leaves, two per streaming leaf); a step takes one
+    gradient, that projection, and the polar ``descent_update``'s two
+    single-leaf projections per Stiefel leaf, and mixes x, u (one grouped
+    ring call per 16 leaves) and y, v (one leaf each); a metric call takes
+    the global gradient at the consensus point (forward, backward,
+    projection) and y* (forward)."""
+    from repro_torch.kernels import stiefel_project as _sp
+    from repro_torch.models import transformer as T
+    from repro_torch.objectives import lm
+    from repro_torch.tree import tree_flatten
+
+    params = T.abstract_params(cfg)
+    problem = lm.make_lm_problem(cfg, params)
+    xs = tree_flatten(params)[0]
+    stiefel = [tuple(x.shape[-2:]) for m, x in
+               zip(tree_flatten(problem.manifold_map)[0], xs)
+               if m.name == "stiefel"]
+
+    def project(leaves):
+        onchip = sum(1 for d, r in leaves if _sp.cluster_size(d, r))
+        return -(-onchip // 16) + 2 * (len(leaves) - onchip)
+
+    tree = project(stiefel)
+    layers = cfg.n_layers
+    per_step = {"flash_attention": layers, "flash_attention_bwd": 2 * layers,
+                "stiefel_project": tree + 2 * sum(project([leaf])
+                                                  for leaf in stiefel),
+                "ring_mix": 2 * -(-len(xs) // 16) + 2}
+    init = {"flash_attention": layers, "flash_attention_bwd": 2 * layers,
+            "stiefel_project": tree, "ring_mix": 0}
+    metric = {"flash_attention": 2 * layers,
+              "flash_attention_bwd": 2 * layers, "stiefel_project": tree,
+              "ring_mix": 0}
+    total = {k: steps * per_step[k] + init[k] + metric_calls * metric[k]
+             for k in per_step}
+    return per_step, total
+
+
+class _PlainAttentionCalls:
+    """Counts calls of the plain attention versions (``ref.
+    blockwise_attention``, ``ref.attention_backward``) while it is open:
+    the card's path must run none."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.calls = 0
+        self.saved = {n: getattr(ref, n) for n in
+                      ("blockwise_attention", "attention_backward")}
+        for name, fn in self.saved.items():
+            setattr(ref, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def wrapper(*args, **kwargs):
+            self.calls += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        for name, fn in self.saved.items():
+            setattr(ref, name, fn)
+
+
+def _all_counts() -> dict:
+    from repro_torch.kernels import ops
+    return {**ops.launch_counts(), **ops.backward_launch_counts()}
+
+
+def train_phase() -> dict:
+    """The LM trainer on the card (``repro_torch.launch.train``):
+    (b) the recorded JAX run (``tests/data/lm_reference.json``:
+    full-width smollm-135m cut in depth, 4 nodes, DRSGDA) held point by
+    point within its gates; (c) the CLI at full width (30 layers) with its
+    defaults (8 nodes, 4 x 64 tokens a node), ``TRAIN_STEPS`` steps,
+    ``--eval-every`` 10, telemetry and one checkpoint, exiting 0 under the
+    JAX success rule; (d) in both, the launches as :func:`_train_launches`
+    derives them and no call of a plain attention version; (e) the
+    full-width step: median synchronized wall, the polar retraction of its
+    Stiefel leaves alone, one profiled step's device time, busy share and
+    top kernels.  Returns the CLI run's launch counts."""
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    # (b) the reduced-depth run against the JAX package's
+    reference = train.load_reference()
+    s = reference["settings"]
+    per_step, want = _train_launches(train.reference_config(s), s["steps"],
+                                     len(s["eval_steps"]))
+    ops.reset_launch_counts()
+    with _PlainAttentionCalls() as plain:
+        res = train.run_reference(reference, "cuda")
+    got = _all_counts()
+    comparison = train.compare_to_reference(res, reference)
+    for curve, per_key in comparison.items():
+        log(f"  reference {curve}: " + ", ".join(
+            f"{key} {q['gated']:.3e}" for key, q in per_key.items()))
+    log(f"  reference run ({s['n_layers']} layers at full width, "
+        f"{s['n_nodes']} nodes, {s['steps']} steps): final loss "
+        f"{res['steps'][-1]['loss']:.6f} (JAX "
+        f"{reference['steps'][-1]['loss']:.6f}), M_t "
+        f"{res['evals'][-1]['M_t']:.6f} (JAX "
+        f"{reference['evals'][-1]['M_t']:.6f}), {res['us_per_step']:.1f} "
+        f"us/step; launches {got}")
+    if not train.within_reference(comparison):
+        raise AssertionError(f"LM reference run outside its gates: "
+                             f"{comparison}")
+    _check_launches("LM reference run", got, want)
+    if plain.calls:
+        raise AssertionError(f"a plain attention version ran {plain.calls} "
+                             f"times on the card")
+
+    # (c) the CLI at full width
+    cfg = configs.get_config("smollm-135m")
+    evals = -(-TRAIN_STEPS // TRAIN_EVAL_EVERY)
+    # every evaluation runs the metric twice: the row and the dashboard
+    per_step, want = _train_launches(cfg, TRAIN_STEPS, 2 * evals)
+    log(f"  launches a full-width step, derived: {per_step}")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, \
+            _PlainAttentionCalls() as plain:
+        t0 = time.perf_counter()
+        rc = train.main([
+            "--steps", str(TRAIN_STEPS), "--eval-every",
+            str(TRAIN_EVAL_EVERY), "--telemetry", "--telemetry-dir",
+            f"{tmp}/tel", "--telemetry-run", "lm", "--checkpoint-dir",
+            f"{tmp}/ckpt", "--checkpoint-every", str(TRAIN_STEPS),
+            "--log-json", f"{tmp}/history.json"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        history = json.loads(Path(f"{tmp}/history.json").read_text())
+        kinds = [json.loads(line)["type"] for line in
+                 Path(f"{tmp}/tel/lm.events.jsonl").read_text().splitlines()]
+        ckpt = sorted(Path(f"{tmp}/ckpt").iterdir())
+        ckpt_bytes = sum(p.stat().st_size for p in ckpt)
+    got = _all_counts()
+    last = history[-1]
+    log(f"  CLI full width ({cfg.n_layers} layers, {TRAIN_NODES} nodes, "
+        f"{TRAIN_STEPS} steps): rc {rc}, {wall:.1f} s wall with the "
+        f"evaluations, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB; " + "; ".join(
+            f"step {r['step']} loss {r['loss']:.6f} M_t {r['M_t']:.6f} "
+            f"stiefel_residual {r['stiefel_residual']:.3e}" for r in history)
+        + f"; events {kinds.count('dashboard')} dashboards, "
+        f"{kinds.count('counters')} counter flushes; checkpoint "
+        f"{[p.name for p in ckpt]} {ckpt_bytes} bytes; launches {got}")
+    if rc != 0 or not (math.isfinite(last["loss"])
+                       and last["stiefel_residual"] < 1e-2):
+        raise AssertionError(f"LM CLI failed its success rule: rc {rc}, "
+                             f"{last}")
+    _check_launches("LM CLI", got, want)
+    if plain.calls or len(ckpt) != 1 or kinds.count("dashboard") != evals:
+        raise AssertionError(f"LM CLI: plain attention calls {plain.calls}, "
+                             f"checkpoints {ckpt}, events {kinds}")
+    counts = dict(got)
+    _train_step_profile(cfg, per_step)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_step_profile(cfg, per_step: dict, steps: int = 10) -> None:
+    """(e) The full-width DRSGDA step at the CLI defaults: the median of
+    ``steps`` synchronized steps after 3 warm-up steps, the polar
+    retraction of the Stiefel leaves alone (CUDA events), and one profiled
+    step: device time, busy share, the port's kernels, the top kernels,
+    and its launches against ``per_step``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.convert import lm_batch_to_torch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_trainer, init_train_state
+    from repro_torch.tree import tree_flatten
+
+    opt, problem = build_trainer(cfg, TRAIN_NODES)
+    stream = TokenStream(TRAIN_NODES, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                         n_groups=cfg.n_groups, seed=0)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, opt, TRAIN_NODES,
+                             lm_batch_to_torch(stream.batch(0), "cuda"))
+    batch = lm_batch_to_torch(stream.batch(1), "cuda")
+    for _ in range(3):
+        state, _ = opt.step(state, batch)
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = opt.step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e6)
+    wall_us = statistics.median(walls)
+    h = opt.hyper
+    leaves = [(m, x, u) for m, x, u in zip(
+        tree_flatten(problem.manifold_map)[0], tree_flatten(state.x)[0],
+        tree_flatten(state.u)[0]) if m.name == "stiefel"]
+
+    def retract():
+        return [m.descent_update(x, x, u, alpha=h.alpha, beta=h.beta,
+                                 kind="polar", method=h.invsqrt)
+                for m, x, u in leaves]
+    retract_ms = time_ms(retract, reps=5, warmup=1)
+    ops.reset_launch_counts()
+    own = own_kernels()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = opt.step(state, batch)
+        torch.cuda.synchronize()
+    got = _all_counts()
+    if any(got[k] != v for k, v in per_step.items()):
+        raise AssertionError(f"LM step launches {got}, want {per_step}")
+    kernels = _device_kernels(prof, 1)
+    device_us = sum(k[0] for k in kernels)
+    own_us = sum(k[0] for k in kernels if own.search(k[2]))
+    bwd_us = sum(k[0] for k in kernels if "attn_bwd" in k[2])
+    log(f"  full-width DRSGDA step: {wall_us:.1f} us wall (median of "
+        f"{steps} synchronized steps; min {min(walls):.1f}, max "
+        f"{max(walls):.1f}); {device_us:.1f} us of device time in "
+        f"{sum(k[1] for k in kernels):.0f} kernels (device busy "
+        f"{100 * device_us / wall_us:.1f}% of the wall); the port's CUDA "
+        f"kernels {own_us:.1f} us, of which the attention backward "
+        f"{bwd_us:.1f}; the polar retraction of the "
+        f"{len(leaves)} Stiefel leaves alone {retract_ms:.3f} ms (CUDA "
+        f"events); launches {got}")
+    for us, count, key in kernels[:12]:
+        log(f"    {us:9.1f} us/step  x{count:4.0f}  {key[:100]}")
+
+
+# ---------------------------------------------------------------------------
 # serving path
 # ---------------------------------------------------------------------------
 
@@ -2277,6 +2662,7 @@ def main() -> int:
     log("kernel phase:")
     rows = kernel_phase()
     rows.update(attention_kernel_phase())
+    rows.update(attention_backward_phase())
     log("geometries:")
     geometry_phase()
     log("main path:")
@@ -2322,11 +2708,15 @@ def main() -> int:
     log("serving path:")
     paths["serving"] = serve_phase()
     serve_agreement_phase()
+    # last: its full-width states take half the card's memory
+    log("LM training:")
+    paths["train"] = train_phase()
 
     # each kernel's launches come from the path it belongs to; every path's
     # counts stand beside them
     home = {name: "full" if name in FULL_PATH else
-            "int8" if name in INT8_PATH else "serving"
+            "int8" if name in INT8_PATH else
+            "train" if name in TRAIN_PATH else "serving"
             for name in KERNEL_META}
     table = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -2,11 +2,12 @@
 
 The port's own copy of the JAX package's ``configs/base.py`` (whose
 package ``__init__`` imports JAX), cut to the fields the transformer, the
-paged KV cache and the serving path read.  Field names, defaults and
-meanings are the reference's.  Not carried over: the MoE, SSM and xLSTM
-block specs, the modality frontend, the TPU mesh plan and the comms/perf
-knobs; a block kind or attention flavour the port does not run yet is
-refused where it is built (``models/transformer.py``).
+paged KV cache, the serving path, the LM objective and the trainer read.
+Field names, defaults and meanings are the reference's.  Not carried
+over: the MoE, SSM and xLSTM block specs, the modality frontend
+(``frontend``, ``n_codebooks``), and the TPU-only fields (``mesh_plan``,
+``use_scan``, ``dtype``); a block kind or attention flavour the port does
+not run yet is refused where it is built (``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -51,9 +52,54 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    max_seq_len: int = 131072
+    # which parameters are manifold-constrained: path-regex over '/'-joined
+    # key paths; only matrix (and, for Stiefel, tall or square) matches are
+    # constrained (``geometry.manifold_map_from_paths``)
+    manifold_policy: str = (
+        r"attn/(wq|wk|wv|wo|w_dq|w_dkv)$|mlstm/(wq|wk|wv|w_down)$")
+    # the geometry of the policy-matched leaves: a repro_torch.geometry
+    # registry name ("stiefel", "grassmann", "oblique", "sphere")
+    manifold: str = "stiefel"
     n_groups: int = 8                  # DRO group count (LM objective)
-    remat: bool = True                 # activation checkpointing (training)
+    rho: float = 1.0                   # strong-concavity coefficient (Eq. 21)
+    # activation checkpointing in the JAX package; the port keeps the
+    # activations (the same numbers, more memory)
+    remat: bool = True
+    # correct-class logit by "gather" (take_along_axis) or "dot" (one-hot
+    # contraction); the same loss
+    ce_impl: str = "gather"
     vocab_pad_to: int = 0              # pad (un)embedding rows; 0 = none
+    # --- communication layer knobs (repro_torch.comms) ---------------------
+    comm_compressor: str = "none"      # "none" | "int8" | "topk" | "lowrank"
+    comm_topk_frac: float = 0.05       # kept fraction per node (topk)
+    comm_rank: int = 4                 # retained rank per matrix leaf
+    comm_gamma: float = 0.9            # CHOCO consensus step on the hats
+    comm_error_feedback: bool = True   # False => naive quantized gossip
+    comm_quant_hops: str = "first"     # "first" | "all" (int8, k > 1)
+    comm_drop_rate: float = 0.0
+    comm_straggler_rate: float = 0.0
+    comm_schedule: str = "static"      # static | round_robin | matching
+    # how gossip hops execute: "stacked" (the node axis on leaf axis 0) or
+    # "auto" (stacked without a mesh); "shard_map" is not ported
+    mix_backend: str = "auto"
+
+    def comm_spec(self):
+        """``repro_torch.comms.CommSpec`` from the comm_* knobs, or None
+        when the communication layer is a no-op (exact, lossless gossip)."""
+        if (self.comm_compressor == "none" and self.comm_drop_rate == 0.0
+                and self.comm_straggler_rate == 0.0
+                and self.comm_schedule == "static"):
+            return None
+        from repro_torch.comms.spec import CommSpec
+        return CommSpec(compressor=self.comm_compressor,
+                        topk_frac=self.comm_topk_frac, rank=self.comm_rank,
+                        gamma=self.comm_gamma,
+                        error_feedback=self.comm_error_feedback,
+                        quant_hops=self.comm_quant_hops,
+                        drop_rate=self.comm_drop_rate,
+                        straggler_rate=self.comm_straggler_rate,
+                        schedule=self.comm_schedule)
 
     @property
     def padded_vocab(self) -> int:

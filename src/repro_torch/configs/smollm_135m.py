@@ -1,5 +1,5 @@
 """SmolLM-135M [dense]: llama-architecture small model, the serving
-path's default.  [hf:HuggingFaceTB/SmolLM-135M]
+path's and the LM trainer's default.  [hf:HuggingFaceTB/SmolLM-135M]
 
 30L  d_model=576  9H (kv=3)  d_ff=1536  vocab=49152.
 

@@ -9,7 +9,9 @@ for leaf (weights ``x @ W`` as (d_in, d_out), stacked repeats on a leading
 axis, in both).  The comms engine's memory
 (``CommState`` hats, one tree per slot) converts the same way.  Inputs are
 NumPy arrays (or anything ``numpy.asarray`` takes); this module imports no
-JAX.
+JAX.  :func:`lm_params_from_seed` draws a transformer's parameters with
+NumPy alone, so that a JAX run and a run of the port can start from the
+same weights without carrying them in a file.
 """
 from __future__ import annotations
 
@@ -121,3 +123,65 @@ def batch_to_torch(batch: dict, device) -> dict:
         "labels": torch.as_tensor(np.asarray(batch["labels"], np.int64),
                                   device=device),
     }
+
+
+def lm_batch_to_torch(batch: dict, device) -> dict:
+    """A ``TokenStream`` batch (tokens, group ids; int32) as int64 tensors,
+    PyTorch's index type."""
+    return {k: torch.as_tensor(np.asarray(v, np.int64), device=device)
+            for k, v in batch.items()}
+
+
+def lm_params_from_seed(cfg, seed: int) -> dict:
+    """One node's transformer parameters (dense ``"attn"`` blocks) in the
+    JAX package's layout, as float32 NumPy arrays drawn from
+    ``numpy.random.default_rng(seed)``, each leaf at its JAX initializer's
+    scale (``src/repro/models/layers.py``): embeddings N(0, 0.02^2), dense
+    weights N(0, 1/d_in), attention projections orthonormal (the Q factor
+    of a Gaussian, transposed for a wide matrix), norm scales ones; stacked
+    repeats on a leading axis.  Not the JAX package's draws (those come
+    from ``jax.random``): both packages take these instead."""
+    rng = np.random.default_rng(seed)
+    d, hd, v = cfg.d_model, cfg.hd, cfg.padded_vocab
+
+    def normal(shape, scale):
+        return (scale * rng.standard_normal(shape, dtype=np.float32)
+                ).astype(np.float32)
+
+    def orthogonal(d_in, d_out):
+        tall = d_in >= d_out
+        a = rng.standard_normal((d_in, d_out) if tall else (d_out, d_in))
+        q = np.linalg.qr(a)[0]
+        return np.ascontiguousarray(q if tall else q.T, dtype=np.float32)
+
+    def block(spec):
+        if spec.kind != "attn" or spec.attn.kind != "gqa":
+            raise NotImplementedError(f"block {spec} is not ported yet")
+        p = {"ln1": {"scale": np.ones(d, np.float32)},
+             "attn": {"wq": orthogonal(d, cfg.n_heads * hd),
+                      "wk": orthogonal(d, cfg.n_kv_heads * hd),
+                      "wv": orthogonal(d, cfg.n_kv_heads * hd),
+                      "wo": orthogonal(cfg.n_heads * hd, d)},
+             "ln2": {"scale": np.ones(d, np.float32)}}
+        if spec.has_mlp and cfg.d_ff > 0:
+            p["mlp"] = {"w_gate": normal((d, cfg.d_ff), d ** -0.5),
+                        "w_up": normal((d, cfg.d_ff), d ** -0.5),
+                        "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
+        return p
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    def stage(st):
+        cells = [{f"b{i}": block(sp) for i, sp in enumerate(st.blocks)}
+                 for _ in range(st.repeat)]
+        return cells[0] if st.repeat == 1 else stack(cells)
+
+    p = {"embed": normal((v, d), 0.02),
+         "stages": {f"s{i}": stage(st) for i, st in enumerate(cfg.stages)},
+         "final_norm": {"scale": np.ones(d, np.float32)}}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal((d, v), d ** -0.5)
+    return p

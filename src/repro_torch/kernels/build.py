@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("stiefel_project", "retract", "ring_mix", "multi_hop_mix",
            "quant_mix", "multi_hop_mix_quant", "flash_attention",
-           "paged_decode")
+           "flash_attention_bwd", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

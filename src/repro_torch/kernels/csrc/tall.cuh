@@ -9,7 +9,8 @@
 //   apply_kernel<kApplyProject>  out = G - X S
 //   apply_kernel<kApplyRetract>  out = X M1 + G M2
 //
-// Every product is 3xTF32 mma.sync.m16n8k8 (tensorcore.cuh): fp32 accuracy
+// Every product is 3xTF32 mma.sync.m16n8k8 (tensorcore.cuh), each k step's
+// three products summed apart and added in fp32 (mma_tile): fp32 accuracy
 // at 165 TFLOP/s, where the first version's fp32 FMA on CUDA cores ran at
 // 31% of 67.  A block is 4 warps on a 64 x 64 output tile, each warp 32 x 32
 // (2 x 4 m16n8 fragments, 32 fp32 accumulators a product).  Operands move
@@ -144,25 +145,40 @@ __device__ __forceinline__ void frag_b(const float* s, int kk, int wn,
 // acc += A B as 3xTF32 for the warp's 2 x 4 fragments: each of the three
 // passes (lo hi, hi lo, hi hi: small terms first, as mma_3xtf32) runs over
 // all eight accumulators before the next, so eight independent products
-// are in flight instead of one chain of three.
+// are in flight instead of one chain of three.  The passes sum into a
+// partial of their own, added to acc with fp32 adds: the tensor cores'
+// fp32 accumulation does not round to nearest, and carried through a
+// whole reduction (the d rows of a Gram, the r columns of an apply) its
+// error grows with the reduction's length.  Accumulated in the mma, the
+// projection's Gram at (8, 576, 576) left 11x the normal part
+// || sym(x^T P(g)) || of cuBLAS fp32 and tripled the LM run's Stiefel
+// residual; with the partial it leaves less than cuBLAS, at the same
+// device time (launch/project_accuracy.py).
 __device__ __forceinline__ void mma_tile(float (*acc)[4][4], uint32_t (*ah)[4],
                                          uint32_t (*al)[4], uint32_t (*bh)[2],
                                          uint32_t (*bl)[2]) {
+  float part[2][4][4] = {};
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
-      tcore::mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+      tcore::mma_tf32(part[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
-      tcore::mma_tf32(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+      tcore::mma_tf32(part[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
-      tcore::mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+      tcore::mma_tf32(part[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[mt][nt][q];
 }
 
 // The warp's accumulators into a (64 x kLd) shared tile.

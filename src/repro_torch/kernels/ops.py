@@ -14,6 +14,12 @@ launch and count (:func:`launch_counts`).  Inside an estimates scope
 call's analytical cost, under the JAX package's kernel name and formula,
 on either device: one record per grouped call of up to 16 leaves, the sum
 over its leaves.  Outside one it works out no estimate.
+
+``flash_attention`` is differentiable, also under ``torch.func.vmap`` and
+``torch.func.grad``: its gradient is the CUDA backward kernel
+(``csrc/flash_attention_bwd.cu``) on the card and
+``ref.attention_backward`` on the CPU, counted apart
+(:func:`backward_launch_counts`), as the kernel has no TPU counterpart.
 """
 from __future__ import annotations
 
@@ -45,10 +51,16 @@ _KERNELS = {"stiefel_project": (_sp, "launches"),
             "paged_decode": (_pd, "launches")}
 _MAX_GRID_YZ = 65535      # CUDA's limit on grid.y / grid.z
 _MAX_HEAD_DIM = 256       # the attention kernels' largest hd / hdv
+_MAX_BWD_HEAD_DIM = 128   # the attention backward kernel's
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 # the query block the JAX package's flash-attention estimate reads (its
 # DEFAULT_BLOCK_Q; the estimate counts the work of that blocking)
 _EST_BLOCK_Q = 128
+
+
+# kernels without a TPU counterpart, counted apart from launch_counts(),
+# whose keys are the JAX package's kernel names (obs/estimates.py KERNELS)
+_BACKWARD_KERNELS = {"flash_attention_bwd": (_fa, "bwd_launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -57,8 +69,15 @@ def launch_counts() -> dict[str, int]:
             for name, (mod, attr) in _KERNELS.items()}
 
 
+def backward_launch_counts() -> dict[str, int]:
+    """Launches of the backward kernels since the last reset: the
+    attention gradient's, two a call (dq, then dk and dv)."""
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _BACKWARD_KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _KERNELS.values():
+    for mod, attr in (*_KERNELS.values(), *_BACKWARD_KERNELS.values()):
         setattr(mod, attr, 0)
 
 
@@ -424,7 +443,15 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     Query head h reads kv head ``h // (H // Hkv)``.  Positions (B, S) and
     (B, T) default to aranges; a key is usable when its position is >= 0,
     and, when ``causal``, <= the query's, and, with a ``window``, less than
-    ``window`` behind it.  A query with no usable key gets exact zeros."""
+    ``window`` behind it.  A query with no usable key gets exact zeros.
+
+    Differentiable in q, k and v (:class:`_FlashAttention`), under
+    ``torch.func.vmap`` and ``grad`` too: the backward kernel on the card
+    takes float32 only and raises a TypeError for bf16.  With nothing to
+    differentiate or fold (serving: no grad, no ``torch.func`` transform)
+    it dispatches directly: through ``Function.apply`` a prefill call
+    cost the host of an H100 machine 70-130 us more
+    (``launch/serve_timing.py``)."""
     b, s, h, hd = q.shape
     t, hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
     if (k.shape != (b, t, hkv, hd) or v.shape[:3] != (b, t, hkv)
@@ -435,28 +462,173 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                          f"{tuple(v.shape)}")
     win = _window("flash_attention", window)
     if q_positions is None:
-        q_positions = torch.arange(s, dtype=torch.int32,
-                                   device=q.device).expand(b, s)
+        q_positions = torch.arange(s, dtype=torch.int32, device=q.device)
     if kv_positions is None:
-        kv_positions = torch.arange(t, dtype=torch.int32,
-                                    device=q.device).expand(b, t)
+        kv_positions = torch.arange(t, dtype=torch.int32, device=q.device)
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     _record("flash_attention", lambda: [_est.flash_attention_est(
         b, s, t, h, hd, causal=causal, window=window, block_q=_EST_BLOCK_Q,
         itemsize=q.element_size())])
-    if not _attn_card("flash_attention", q, (q, k, v),
-                      (q_positions, kv_positions)):
+    args = (q, k, v, q_positions.expand(b, s), kv_positions.expand(b, t),
+            causal, win, scale)
+    if torch._C._are_functorch_transforms_active() or (
+            torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _FlashAttention.apply(*args)
+    return _attention_forward(*args)
+
+
+def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                             d_out: Tensor, *, causal: bool = True,
+                             window: int | None = None,
+                             q_positions: Tensor | None = None,
+                             kv_positions: Tensor | None = None,
+                             softmax_scale: float | None = None
+                             ) -> tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of ``out = flash_attention(q, k, v, ...)`` for the
+    cotangent ``d_out`` (B, S, H, hdv): what the gradient of
+    :func:`flash_attention` runs, called directly (not differentiable).
+    The CUDA backward kernel on the card (float32 only; head dims up to
+    128), ``ref.attention_backward`` on the CPU."""
+    b, s = q.shape[:2]
+    t = k.shape[1]
+    if out.shape != d_out.shape or out.shape[:3] != q.shape[:3]:
+        raise ValueError(f"flash_attention_backward: want out and d_out "
+                         f"(B, S, H, hdv) of q's (B, S, H); got "
+                         f"{tuple(out.shape)}, {tuple(d_out.shape)}")
+    if q_positions is None:
+        q_positions = torch.arange(s, dtype=torch.int32, device=q.device)
+    if kv_positions is None:
+        kv_positions = torch.arange(t, dtype=torch.int32, device=q.device)
+    scale = softmax_scale if softmax_scale is not None \
+        else q.shape[-1] ** -0.5
+    return _attention_backward(d_out, q, k, v, out, q_positions.expand(b, s),
+                               kv_positions.expand(b, t), causal,
+                               _window("flash_attention_backward", window),
+                               scale)
+
+
+def _plain_operands(name: str, *ts: Tensor) -> None:
+    """A kernel takes storage: the ``vmap`` rules below fold every
+    ``torch.func`` level into the batch axis before the dispatch."""
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in ts):
+        raise RuntimeError(f"{name}: a torch.func tensor reached the "
+                           f"dispatch unfolded")
+
+
+def _attention_forward(q, k, v, q_pos, kv_pos, causal, window, scale):
+    """The forward on plain tensors: the CUDA kernel on the card, the plain
+    version on the CPU."""
+    _plain_operands("flash_attention", q, k, v, q_pos, kv_pos)
+    if not _attn_card("flash_attention", q, (q, k, v), (q_pos, kv_pos)):
         return ref.blockwise_attention(
-            q, k, v, causal=causal, window=window, q_positions=q_positions,
-            kv_positions=kv_positions, softmax_scale=scale)
-    _head_dims("flash_attention", hd, hdv)
+            q, k, v, causal=causal, window=window or None,
+            q_positions=q_pos, kv_positions=kv_pos, softmax_scale=scale)
+    b, s, h, hd = q.shape
+    _head_dims("flash_attention", hd, v.shape[-1])
     if min(b, s, h) < 1 or max(b, h) > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention: unsupported shape "
                          f"{tuple(q.shape)}")
     return _fa.launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                      q_positions.expand(b, s).contiguous(),
-                      kv_positions.expand(b, t).contiguous(), causal=causal,
-                      window=win, scale=scale)
+                      q_pos.contiguous(), kv_pos.contiguous(), causal=causal,
+                      window=window, scale=scale)
+
+
+def _attention_backward(d_out, q, k, v, out, q_pos, kv_pos, causal, window,
+                        scale):
+    """(dq, dk, dv) on plain tensors: the CUDA backward kernel on the card
+    (float32 only), ``ref.attention_backward`` on the CPU."""
+    _plain_operands("flash_attention backward", d_out, q, k, v, out, q_pos,
+                    kv_pos)
+    if not _attn_card("flash_attention backward", q, (q, k, v, out, d_out),
+                      (q_pos, kv_pos)):
+        return ref.attention_backward(
+            q, k, v, out, d_out, causal=causal, window=window or None,
+            q_positions=q_pos, kv_positions=kv_pos, softmax_scale=scale)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention backward: the CUDA kernel takes "
+                        f"float32 only, got {q.dtype}")
+    b, s, h, hd = q.shape
+    hdv = v.shape[-1]
+    if max(hd, hdv) > _MAX_BWD_HEAD_DIM:
+        raise ValueError(f"flash_attention backward: the CUDA kernel takes "
+                         f"head dims up to {_MAX_BWD_HEAD_DIM}, got hd={hd}, "
+                         f"hdv={hdv}")
+    if min(b, s, h, k.shape[1]) < 1 or max(b, h) > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention backward: unsupported shape "
+                         f"{tuple(q.shape)}")
+    return _fa.launch_backward(q.contiguous(), k.contiguous(), v.contiguous(),
+                               out.contiguous(), d_out.contiguous(),
+                               q_pos.contiguous(), kv_pos.contiguous(),
+                               causal=causal, window=window, scale=scale)
+
+
+def _fold(x: Tensor, dim: int | None, n: int) -> Tensor:
+    """A ``vmap`` level folded into the batch axis: the vmapped dim (or an
+    expanded copy where the input is not batched) moved first, then
+    (n, B, ...) -> (n * B, ...)."""
+    x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(n * x.shape[1], *x.shape[2:])
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention as an autograd Function that ``torch.func`` accepts:
+    ``forward`` without ctx, ``setup_context``, and a ``vmap`` rule that
+    folds the vmapped axis into B, so the kernel sees plain tensors."""
+
+    @staticmethod
+    def forward(q, k, v, q_pos, kv_pos, causal, window, scale):
+        return _attention_forward(q, k, v, q_pos, kv_pos, causal, window,
+                                  scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, q_pos, kv_pos, causal, window, scale = inputs
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, output)
+        ctx.args = (causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, q_pos, kv_pos, out = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBackward.apply(d_out, q, k, v, out, q_pos,
+                                                   kv_pos, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, q_pos, kv_pos, causal, window, scale):
+        n = info.batch_size
+        folded = [_fold(x, d, n)
+                  for x, d in zip((q, k, v, q_pos, kv_pos), in_dims[:5])]
+        out = _FlashAttention.apply(*folded, causal, window, scale)
+        return out.unflatten(0, (n, -1)), 0
+
+
+class _FlashAttentionBackward(torch.autograd.Function):
+    """The attention gradient as a Function of its own, so that the
+    backward too gets a ``vmap`` rule: under ``vmap(grad(...))`` it
+    receives batched tensors, which no kernel can take."""
+
+    @staticmethod
+    def forward(d_out, q, k, v, out, q_pos, kv_pos, causal, window, scale):
+        return _attention_backward(d_out, q, k, v, out, q_pos, kv_pos, causal,
+                                   window, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash_attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, d_out, q, k, v, out, q_pos, kv_pos, causal,
+             window, scale):
+        n = info.batch_size
+        folded = [_fold(x, d, n) for x, d in
+                  zip((d_out, q, k, v, out, q_pos, kv_pos), in_dims[:7])]
+        grads = _FlashAttentionBackward.apply(*folded, causal, window, scale)
+        return tuple(g.unflatten(0, (n, -1)) for g in grads), (0, 0, 0)
 
 
 def paged_decode_attention(q: Tensor, k_pages: Tensor, v_pages: Tensor,

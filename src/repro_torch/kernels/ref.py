@@ -260,6 +260,49 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
     return out.to(q.dtype)
 
 
+def attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                       d_out: Tensor, *, causal: bool = True,
+                       window: int | None = None, q_positions=None,
+                       kv_positions=None,
+                       softmax_scale: float | None = None
+                       ) -> tuple[Tensor, Tensor, Tensor]:
+    """The gradient of :func:`blockwise_attention` (and of the CUDA
+    flash_attention): given its inputs, its output ``out`` (B, S, H, hdv)
+    and the cotangent ``d_out``, returns (dq, dk, dv) in the inputs'
+    dtypes, by the explicit formulas in fp32:
+
+        P  = the masked softmax probabilities (0 on masked keys)
+        D  = rowsum(d_out * out)
+        dS = P * (d_out v^T - D)
+        dq = scale dS k,  dk = scale dS^T q,  dv = P^T d_out
+
+    with dk and dv summed over the query heads of each GQA group.  A query
+    with no usable key has P = 0 (and zero output): it passes zero
+    gradient.  Full (S, T) scores per head, as :func:`attention_naive`."""
+    b, s, h, hd = q.shape
+    t, hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hkv
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    q_pos, kv_pos = _positions(q, k, q_positions, kv_positions)
+    qg = q.float().reshape(b, s, hkv, g, hd)
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bshgd,bthd->bhgst", qg * scale, kf)
+    mask = _attn_mask(q_pos, kv_pos, causal, window)[:, None, None]
+    scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m).masked_fill(~mask, 0.0)
+    p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    dog = d_out.float().reshape(b, s, hkv, g, hdv)
+    d_rows = (dog * out.float().reshape(b, s, hkv, g, hdv)).sum(-1)
+    dp = torch.einsum("bshge,bthe->bhgst", dog, vf)
+    ds = p * (dp - d_rows.permute(0, 2, 3, 1)[..., None])
+    dq = scale * torch.einsum("bhgst,bthd->bshgd", ds, kf)
+    dk = scale * torch.einsum("bhgst,bshgd->bthd", ds, qg)
+    dv = torch.einsum("bhgst,bshge->bthe", p, dog)
+    return (dq.reshape(b, s, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def paged_decode_attention_ref(q: Tensor, k_pages: Tensor, v_pages: Tensor,
                                block_table: Tensor, seq_lens: Tensor, *,
                                window: int | None = None,

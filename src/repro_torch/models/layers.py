@@ -2,7 +2,8 @@
 initializers from an explicit ``torch.Generator``, RMSNorm, SwiGLU and
 rotary position embeddings, as plain functions over dicts of tensors.
 
-Initializers draw on the generator's device and cast to ``dtype``; the
+Initializers draw on the generator's device and cast to ``dtype`` (with
+no generator, they make ``meta`` tensors: shapes only, no draws); the
 numbers differ from the JAX package's (another generator), so tests carry
 weights over with ``repro_torch.convert``.  Weights are ``x @ W`` with W
 as (d_in, d_out), the JAX package's layout.
@@ -19,11 +20,17 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def draw_device(generator: torch.Generator | None):
+    """Where an initializer draws: the generator's device, ``meta`` without
+    one."""
+    return "meta" if generator is None else generator.device
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                scale: float | None = None, dtype=torch.float32) -> Tensor:
     scale = scale if scale is not None else (1.0 / d_in) ** 0.5
     return (scale * torch.randn((d_in, d_out), generator=generator,
-                                device=generator.device)).to(dtype)
+                                device=draw_device(generator))).to(dtype)
 
 
 def orthogonal_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -32,7 +39,7 @@ def orthogonal_init(generator: torch.Generator, d_in: int, d_out: int,
     manifold-constrained weights (the paper initializes on St(d, r))."""
     tall = d_in >= d_out
     a = torch.randn((d_in, d_out) if tall else (d_out, d_in),
-                    generator=generator, device=generator.device)
+                    generator=generator, device=draw_device(generator))
     q = torch.linalg.qr(a)[0]
     return (q if tall else q.T).to(dtype).contiguous()
 
@@ -40,7 +47,7 @@ def orthogonal_init(generator: torch.Generator, d_in: int, d_out: int,
 def embed_init(generator: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> Tensor:
     return (torch.randn((vocab, d), generator=generator,
-                        device=generator.device) * 0.02).to(dtype)
+                        device=draw_device(generator)) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

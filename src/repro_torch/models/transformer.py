@@ -9,7 +9,8 @@ Entry points, plain functions over dicts of tensors:
                        ``{"k", "v", "pos"}`` caches, or the paged serving
                        path's ``{"k_pages", "v_pages"}`` pools, with
                        ``position`` then ``(position, block_table)``;
-  * ``init_params`` / ``init_cache`` - constructors.
+  * ``init_params`` / ``init_cache`` - constructors;
+                       ``abstract_params`` - the parameter tree's shapes.
 
 A :class:`Stage` repeats a supercell ``repeat`` times; its parameters and
 caches carry a leading ``repeat`` axis, as the JAX tree does, so that
@@ -24,8 +25,9 @@ import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig, Stage
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (dense_init, embed_init, rmsnorm,
-                                       rmsnorm_init, swiglu, swiglu_init)
+from repro_torch.models.layers import (dense_init, draw_device, embed_init,
+                                       rmsnorm, rmsnorm_init, swiglu,
+                                       swiglu_init)
 from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
@@ -52,7 +54,7 @@ def _check_block(spec: BlockSpec) -> None:
 def init_block(generator: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                dtype=torch.float32) -> dict:
     _check_block(spec)
-    dev = generator.device
+    dev = draw_device(generator)
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
          "attn": attn_mod.init_gqa(generator, cfg, spec.attn, dtype),
          "ln2": rmsnorm_init(cfg.d_model, dtype, dev)}
@@ -75,17 +77,27 @@ def init_stage(generator: torch.Generator, cfg: ModelConfig, stage: Stage,
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32, device=None) -> dict:
     """Parameters drawn with ``generator`` (on its device), then moved to
-    ``device`` (default: the generator's)."""
+    ``device`` (default: the generator's); ``meta`` tensors without a
+    generator."""
     p = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dtype),
          "stages": {f"s{i}": init_stage(generator, cfg, st, dtype)
                     for i, st in enumerate(cfg.stages)},
-         "final_norm": rmsnorm_init(cfg.d_model, dtype, generator.device)}
+         "final_norm": rmsnorm_init(cfg.d_model, dtype,
+                                    draw_device(generator))}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(generator, cfg.d_model, cfg.padded_vocab,
                                   dtype=dtype)
     if device is not None:
         p = tree_map(lambda t: t.to(device), p)
     return p
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> dict:
+    """The tree of :func:`init_params` as ``meta`` tensors (shapes and
+    dtypes, no storage and no draws): the template the LM objective reads
+    its manifold map from, the counterpart of the JAX package's
+    ``jax.eval_shape(init_params)``."""
+    return init_params(None, cfg, dtype)
 
 
 # ---------------------------------------------------------------------------

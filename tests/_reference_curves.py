@@ -2,9 +2,10 @@
 on a machine without JAX.
 
     PYTHONPATH=src python tests/_reference_curves.py [fair] [dro] \
-        [robust_pca] [elastic]
+        [robust_pca] [elastic] [lm]
 
-(all four without arguments).  Each target runs the JAX package, then the
+(all five without arguments; ``lm_retolerance`` rewrites the LM file's
+gates from its stored spread).  Each target runs the JAX package, then the
 same run ``ENSEMBLE`` times more from perturbed initial weights, and
 records the reference's own spread and a gate beside every curve point.
 
@@ -57,9 +58,20 @@ churn and straggler draw of the runs, per round: ``churn`` leave and join,
 start; the churn draws do not depend on them, so every member sees the
 same membership.
 
+``lm``: the JAX trainer of ``launch/train.py`` (``build_trainer``'s
+default hyper, DRSGDA on a 4-node ring) on smollm-135m at its published
+widths cut to 2 layers, 2 sequences of 64 tokens a node, 10 steps, from
+``repro_torch.convert.lm_params_from_seed`` (NumPy draws both packages
+take), written to ``tests/data/lm_reference.json``: ``settings``, every
+step's ``steps`` (loss, grad_norm_x, consensus_x), ``evals`` at steps 5
+and 10 (M_t, stiefel_residual, on the step's batch as the CLI takes
+them), ``spread`` and ``tolerance`` (:data:`LM_CPU_GAP`).  Scalars only:
+the weights are rebuilt from the seed.
+
 ``fair`` takes about 12 minutes on a CPU, ``dro`` about 6, ``robust_pca``
-about 1.  The script imports the JAX package and the benchmarks, and
-nothing of the port.
+about 1, ``lm`` about 15 (about 10 GB of memory).  The script imports the
+JAX package and the benchmarks, and of the port only the NumPy
+initializer ``convert.lm_params_from_seed``.
 """
 from __future__ import annotations
 
@@ -774,14 +786,162 @@ def elastic_main() -> None:
     print(f"wrote {ELASTIC_OUT}")
 
 
+# ---------------------------------------------------------------------------
+# decentralized LM training (launch/train.py's trainer)
+# ---------------------------------------------------------------------------
+
+LM_OUT = ROOT / "tests" / "data" / "lm_reference.json"
+LM_SETTINGS = {
+    "source": "src/repro/launch/steps.py build_trainer (default hyper), "
+              "src/repro/launch/train.py (batch 0 for the init, batch t+1 "
+              "for step t, M_t on the step's batch)",
+    "arch": "smollm-135m", "n_layers": 2, "n_nodes": 4,
+    "batch_per_node": 2, "seq_len": 64, "optimizer": "drsgda",
+    "topology": "ring", "steps": 10, "eval_steps": [5, 10],
+    "params_seed": 0, "stream_seed": 0,
+}
+LM_STEP_KEYS = ("loss", "grad_norm_x", "consensus_x")
+LM_EVAL_KEYS = ("M_t", "stiefel_residual")
+# The port's largest gap from the recorded run on the CPU, per curve and
+# quantity (relative; `python -m repro_torch.launch.train --reference
+# --device cpu`).
+LM_CPU_GAP = {
+    "steps": {"loss": 4.220e-07, "grad_norm_x": 3.632e-07,
+              "consensus_x": 4.030e-07},
+    "evals": {"M_t": 7.022e-08, "stiefel_residual": 2.282e-06},
+}
+
+
+def lm_config():
+    """The recorded run's model: smollm-135m at its published widths, cut
+    to ``LM_SETTINGS["n_layers"]`` layers."""
+    from repro import configs
+    from repro.configs.base import uniform_stages
+
+    cfg = configs.get_config(LM_SETTINGS["arch"])
+    return dataclasses.replace(
+        cfg, stages=uniform_stages(cfg.stages[0].blocks[0],
+                                   LM_SETTINGS["n_layers"]),
+        name=f"{cfg.name}-{LM_SETTINGS['n_layers']}L")
+
+
+def lm_run(cfg, hyper, params) -> dict:
+    """The JAX trainer from one node's ``params`` (projected onto the
+    manifold, broadcast), as ``launch/train.py`` steps it, every step's
+    metrics and M_t at the evaluation steps."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.gda import broadcast_to_nodes
+    from repro.core.metric import convergence_metric
+    from repro.data.synthetic import TokenStream
+    from repro.launch.steps import build_trainer
+    from repro.objectives.lm import init_y
+    from repro.sharding.partition import project_params_to_manifold
+
+    s = LM_SETTINGS
+    opt, problem = build_trainer(cfg, s["n_nodes"], optimizer=s["optimizer"],
+                                 hyper=hyper, topology=s["topology"])
+    stream = TokenStream(n_nodes=s["n_nodes"],
+                         batch_per_node=s["batch_per_node"],
+                         seq_len=s["seq_len"], vocab_size=cfg.vocab_size,
+                         n_groups=cfg.n_groups, seed=s["stream_seed"])
+
+    def batch(t):
+        return {k: jnp.asarray(v) for k, v in stream.batch(t).items()}
+
+    x0 = broadcast_to_nodes(project_params_to_manifold(
+        jax.tree.map(jnp.asarray, params), opt.problem.manifold_map),
+        s["n_nodes"])
+    state = opt.init(x0, init_y(cfg, s["n_nodes"]), batch(0))
+    step = opt.make_step(donate=False)
+    metric = jax.jit(lambda x, y, b: convergence_metric(problem, x, y, b))
+    steps, evals = [], []
+    for t in range(s["steps"]):
+        b = batch(t + 1)
+        state, m = step(state, b)
+        steps.append({"step": t + 1, **{k: float(getattr(m, k))
+                                        for k in LM_STEP_KEYS}})
+        if t + 1 in s["eval_steps"]:
+            mm = metric(state.x, state.y, b)
+            evals.append({"step": t + 1,
+                          **{k: float(mm[k]) for k in LM_EVAL_KEYS}})
+    return {"steps": steps, "evals": evals}
+
+
+def lm_tolerance(spread: dict) -> dict:
+    """The gates of both curves: :func:`tolerance` with
+    :data:`LM_CPU_GAP`; the Stiefel residual's (absolute, as :func:`gap`
+    counts it) without ``FLOOR``, which lies above the residual itself
+    (about 1.8e-5): ten times the spread or the port's CPU gap."""
+    out = tolerance(spread, LM_CPU_GAP, residual=False)
+    out["evals"]["stiefel_residual"] = [
+        max(SPREAD_FACTOR * sp, CPU_FACTOR
+            * LM_CPU_GAP["evals"]["stiefel_residual"])
+        for sp in spread["evals"]["stiefel_residual"]]
+    return out
+
+
+def lm_main() -> None:
+    import numpy as np
+
+    from repro.core.gda import GDAHyper
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.convert import lm_params_from_seed
+
+    cfg = lm_config()
+    # build_trainer's default hyper (launch/steps.py), written out
+    hyper = GDAHyper(alpha=0.5, beta=0.02, eta=0.05)
+    params = lm_params_from_seed(cfg, LM_SETTINGS["params_seed"])
+    ref = lm_run(cfg, hyper, params)
+    print("lm reference run done", flush=True)
+    sp = {"steps": {k: [0.0] * len(ref["steps"]) for k in LM_STEP_KEYS},
+          "evals": {k: [0.0] * len(ref["evals"]) for k in LM_EVAL_KEYS}}
+    for member in range(ENSEMBLE):
+        rng = np.random.default_rng(member + 1)
+
+        def perturb(a):
+            return (a * (1.0 + PERTURBATION * rng.standard_normal(a.shape))
+                    ).astype(np.float32)
+
+        def walk(tree):
+            return {k: walk(v) if isinstance(v, dict) else perturb(v)
+                    for k, v in tree.items()}
+
+        got = lm_run(cfg, hyper, walk(params))
+        for c, keys in (("steps", LM_STEP_KEYS), ("evals", LM_EVAL_KEYS)):
+            for key in keys:
+                pts = sp[c][key]
+                for i, (a, b) in enumerate(zip(got[c], ref[c])):
+                    pts[i] = max(pts[i], gap(a, b, key))
+        print(f"lm ensemble member {member + 1} of {ENSEMBLE} done",
+              flush=True)
+    LM_OUT.write_text(json.dumps({
+        "settings": {**LM_SETTINGS, "hyper": dataclasses.asdict(hyper)},
+        "spread": sp, "tolerance": lm_tolerance(sp), **ref}, indent=1) + "\n")
+    print(f"wrote {LM_OUT}")
+
+
+def lm_retolerance() -> None:
+    """Rewrite the gates of ``LM_OUT`` from its stored spread (after
+    :data:`LM_CPU_GAP` is re-measured), without running JAX again."""
+    out = json.loads(LM_OUT.read_text())
+    out["tolerance"] = lm_tolerance(out["spread"])
+    LM_OUT.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"rewrote the gates of {LM_OUT}")
+
+
 TARGETS = {"fair": fair_main, "dro": dro_main, "robust_pca": pca_main,
-           "elastic": elastic_main}
+           "elastic": elastic_main, "lm": lm_main}
 
 
 def main(argv=None) -> None:
     os.environ.setdefault("REPRO_TUNE", "off")
     names = (sys.argv[1:] if argv is None else argv) or list(TARGETS)
     for name in names:
+        if name == "lm_retolerance":
+            lm_retolerance()
+            continue
         TARGETS[name]()
 
 

@@ -639,3 +639,76 @@ def test_cuda_attention_wrappers_refuse_other_dtypes(cuda):
     with pytest.raises(ValueError, match="head dims up to 256"):
         big = torch.zeros(1, 4, 2, 288, device=cuda)
         ops.flash_attention(big, big, big)
+
+
+# ---------------------------------------------------------------------------
+# the attention backward kernel (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_GATE = 1e-5     # relative to the largest |plain| value of dq, dk, dv
+
+
+@pytest.mark.parametrize("case", [
+    # b, s, t, h, hkv, hd, hdv, causal, window, empty keys
+    (32, 63, 63, 9, 3, 64, 64, True, None, 0),    # the trainer's shape
+    (2, 100, 100, 9, 3, 64, 64, True, 16, 0),     # a window
+    (2, 37, 130, 9, 3, 64, 48, True, None, 0),    # S != T, hdv != hd
+    (2, 64, 64, 6, 2, 32, 32, True, None, 20),    # kv -1, rows without keys
+    (2, 50, 70, 4, 4, 64, 64, False, None, 0),    # non-causal
+    (1, 70, 70, 4, 1, 128, 128, True, None, 0),   # the largest head dims
+])
+def test_cuda_flash_attention_backward_vs_plain(cuda, case):
+    b, s, t, h, hkv, hd, hdv, causal, window, empty = case
+    gen = torch.Generator(device=cuda).manual_seed(s + t)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    k = torch.randn((b, t, hkv, hd), generator=gen, device=cuda)
+    v = torch.randn((b, t, hkv, hdv), generator=gen, device=cuda)
+    qpos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    kpos = torch.arange(t, dtype=torch.int32, device=cuda)
+    kpos = torch.where(kpos < empty, -1, kpos).expand(b, t)
+    kw = dict(causal=causal, window=window, q_positions=qpos,
+              kv_positions=kpos)
+    out = ops.flash_attention(q, k, v, **kw)
+    d_out = torch.randn(out.shape, generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_backward(q, k, v, out, d_out, **kw)
+    assert ops.backward_launch_counts() == {"flash_attention_bwd": 2}
+    want = ref.attention_backward(q, k, v, out, d_out, **kw)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= BWD_GATE * scale
+    again = ops.flash_attention_backward(q, k, v, out, d_out, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_cuda_vmapped_grad_runs_the_kernels(cuda):
+    """vmap(grad) over a node axis through ops.flash_attention: the forward
+    and backward kernels see the folded batch, and the gradients are the
+    per-node plain ones."""
+    from torch.func import grad, vmap
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((3, 2, 40, 9, 64), generator=gen, device=cuda)
+    k = torch.randn((3, 2, 40, 3, 64), generator=gen, device=cuda)
+    v = torch.randn((3, 2, 40, 3, 64), generator=gen, device=cuda)
+    w = torch.randn((3, 2, 40, 9, 64), generator=gen, device=cuda)
+
+    def loss(q, k, v, w):
+        return (ops.flash_attention(q, k, v) * w).sum()
+
+    ops.reset_launch_counts()
+    got = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v, w)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.backward_launch_counts() == {"flash_attention_bwd": 2}
+    for i in range(3):
+        out = ref.blockwise_attention(q[i], k[i], v[i])
+        want = ref.attention_backward(q[i], k[i], v[i], out, w[i])
+        scale = max(float(x.abs().max()) for x in want)
+        for g, x in zip(got, want):
+            assert float((g[i] - x).abs().max()) <= BWD_GATE * scale
+
+
+def test_cuda_flash_attention_backward_refuses_bf16(cuda):
+    x = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 only"):
+        ops.flash_attention_backward(x, x, x, x, x)

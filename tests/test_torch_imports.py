@@ -34,7 +34,8 @@ for name in names:
     importlib.import_module(name)
 assert {"repro_torch.comms.elastic", "repro_torch.launch.elastic",
         "repro_torch.checkpoint", "repro_torch.launch.roofline",
-        "repro_torch.launch.obs"} | {
+        "repro_torch.launch.obs", "repro_torch.objectives.lm",
+        "repro_torch.launch.steps", "repro_torch.launch.train"} | {
     "repro_torch.obs." + m for m in ("events", "trace", "estimates", "wire",
                                      "telemetry")} <= set(names), names
 sys.path.insert(0, sys.argv[1])
