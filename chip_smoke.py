@@ -25,8 +25,16 @@
    stiefel_project as the step calls it, one grouped call for the fc1 and
    head leaves (its on-chip route), and at stress shapes (the streaming
    3xTF32 route at (20, 4096, 256) and (20, 4096, 99)); fused_retract at
-   the same shapes.  Every fp32 matrix product is bounded at the 3xTF32
-   rate (495 / 3 TFLOP/s), whichever unit the kernel uses.  quant_mix as the EF-int8 step calls
+   the same shapes and at smollm-135m's Stiefel leaves as the full-width
+   ``"polar_fused"`` step calls it, stacked over 30 layers and 8 nodes:
+   (240, 576, 576) on its global route (r > 256, the (r, r) stage as
+   tensor-core GEMMs over global memory; the kernel line's row of that
+   route), (240, 576, 192) on its cluster route; then (8, 576, 576) and
+   (8, 576, 257) on the global route; each repeated bit for bit, its
+   device time also read by ``torch.profiler`` and split by CUDA kernel.
+   Every fp32 matrix product is bounded at the 3xTF32
+   rate (495 / 3 TFLOP/s), whichever unit the kernel uses; a product that
+   is symmetric in exact arithmetic counts one triangle.  quant_mix as the EF-int8 step calls
    it: one grouped call for each of the x, u, y and v trees with the old
    hats' exact hop fused in, beside the chain it replaces (ring_mix of the
    hats, quant_mix per leaf, the adds: same bits, timed in the same run),
@@ -47,12 +55,16 @@
    gathers through a block table).  Query rows without keys and empty
    slots must be exact zeros.
    The attention backward kernel (``flash_attention_bwd``, no TPU
-   counterpart) against ``ref.attention_backward`` (1e-5 relative to the
-   largest plain value) at the trainer's shape (B = 32, S = T = 63, GQA
-   9:3, fp32), with a window, and at S = T = 2048, beside SDPA's backward
-   (``torch.autograd.grad`` of one causal SDPA call), bound at the 165
-   TFLOP/s of fp32 products on the tensor cores (3xTF32); every case
-   repeats bit for bit, rows without keys pass exact zeros, bf16 raises.
+   counterpart; its tensor-core route at hd = 64, handed the forward's lse
+   as the gradient hands it) against ``ref.attention_backward`` (1e-5
+   relative to the largest plain value) at the trainer's shape (B = 32,
+   S = T = 63, GQA 9:3, fp32), at S = T = 512 with window 48, and at
+   S = T = 2048 causal, beside SDPA's backward (``torch.autograd.grad`` of
+   one SDPA call under the same mask), both also read by
+   ``torch.profiler`` (the trainer's shape runs at the host's pace under
+   CUDA events), bound at the 165 TFLOP/s of fp32
+   products on the tensor cores (3xTF32); every case repeats bit for
+   bit, rows without keys pass exact zeros, bf16 raises.
    Then the geometries: Grassmann (polar and QR), oblique, sphere and a
    Product of all five on node-stacked (20, 784, 64) and (20, 20, 3) inputs
    from a seed, every op on the card against the CPU (1e-5 relative; dist
@@ -163,9 +175,16 @@
    ``ring_mix`` as the code derives them (``_train_launches``) and no call
    of a plain attention version; then the full-width step's median wall,
    its polar retraction alone, and one profiled step (device time, busy
-   share, top kernels).
+   share, top kernels); then the same under ``GDAHyper(retraction=
+   "polar_fused")``, whose step launches ``fused_retract`` once per
+   Stiefel leaf (4: the leaves are stacked over the layers; wq and wo,
+   240 matrices of 576 x 576 each, on its global route, counted by the
+   wrapper where it launches: ``ops.route_launch_counts()``) and
+   ``stiefel_project`` only for the gradient's tree.
 7. Prints the kernel table as one JSON line (``launches`` from the path a
    kernel belongs to, the backward kernel's from the LM training path,
+   fused_retract's twice: its cluster routes from the fair main path, its
+   global route (r > 256) from the ``"polar_fused"`` LM step;
    ``path_launches`` from every path), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -320,12 +339,17 @@ def _project_cost(shape):
 
 
 def _retract_cost(shape, ns_iters=20):
-    """The tall products (Grams and apply, 8 d r^2 flops a node) and the
-    (r, r) stage (6 + 6 ns_iters r^3), all at the 3xTF32 rate; x and g
-    read and the result written once."""
+    """The least work of the function a node, at the 3xTF32 rate: the
+    Grams x^T g (2 d r^2) and g^T g (d r (r + 1), symmetric), the apply
+    x M1 + g M2 (4 d r^2); in the (r, r) stage B^T S and M1 (2 r^3 each)
+    and the products that are symmetric in exact arithmetic, S S and the
+    three of each Newton-Schulz iteration (r^2 (r + 1) each: a triangle
+    and its diagonal).  x and g read and the result written once."""
     b = math.prod(shape[:-2])
     d, r = shape[-2:]
-    return (b * (8 * d * r * r + (6 + 6 * ns_iters) * r ** 3),
+    sym = r * r * (r + 1)
+    return (b * (6 * d * r * r + d * r * (r + 1) + 4 * r ** 3
+                 + (1 + 3 * ns_iters) * sym),
             3 * b * d * r * 4)
 
 
@@ -363,9 +387,36 @@ def _flat(results) -> list:
     return out
 
 
+def profiled_ms(fn, calls: int) -> tuple[float, list]:
+    """Device milliseconds per call of ``fn`` from ``torch.profiler`` (the
+    device's own time, where events would read the host's pace), and its
+    kernels, most time first, as :func:`_device_kernels` gives them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof, calls)
+    return sum(k[0] for k in kernels) / 1e3, kernels
+
+
+def _kernel_split(kernels) -> str:
+    """us a call per CUDA kernel, the name without its anonymous
+    namespaces, template arguments and parameters."""
+    def short(key):
+        key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+        return re.split(r"[<(]", key, maxsplit=1)[0]
+    return ", ".join(f"{short(key)} {us:.1f} us x{count:.0f}"
+                     for us, count, key in kernels[:6])
+
+
 def run_case(name, calls, plain_calls, gate, costs, label,
              library_calls=None, peak=PEAK_FLOPS, lib_gate=1e-4,
-             chain_calls=None):
+             chain_calls=None, profile_calls=0):
     """calls/plain_calls/library_calls: lists of thunks over the same
     inputs, each returning one output or (a grouped call) a list of them,
     the same outputs in the same order in all three; library_calls, where
@@ -374,7 +425,9 @@ def run_case(name, calls, plain_calls, gate, costs, label,
     largest value.  ``peak``: the card's operation rate for the inputs'
     type.
     ``chain_calls``, where given: the calls a fused kernel replaces, timed
-    beside it and held to the same gate."""
+    beside it and held to the same gate.  With ``profile_calls``, the
+    kernel's (and the library call's) device time a call is also read by
+    :func:`profiled_ms` over that many calls, split by CUDA kernel."""
     import torch
     from repro_torch.obs import estimates as obs_est
     with obs_est.collect() as recorded:
@@ -424,6 +477,17 @@ def run_case(name, calls, plain_calls, gate, costs, label,
         f"({gate_txt}) kernel={ms:.4f} ms device={dev_ms:.4f} ms "
         f"plain={plain_ms:.4f} ms"
         f"{lib_txt}{chain_txt} bound={b_ms:.5f} ms ({b_by})")
+    prof_ms, lib_prof_ms = None, None
+    if profile_calls:
+        prof_ms, kernels = profiled_ms(lambda: [c() for c in calls],
+                                       profile_calls)
+        log(f"    profiler: kernel {prof_ms:.4f} ms a call "
+            f"({_kernel_split(kernels)})")
+        if library_calls is not None:
+            lib_prof_ms, kernels = profiled_ms(
+                lambda: [lc() for lc in library_calls], profile_calls)
+            log(f"    profiler: library {lib_prof_ms:.4f} ms a call "
+                f"({_kernel_split(kernels)})")
     if not ok:
         raise AssertionError(f"{name} {label}: outside its gate "
                              f"({gate_txt}), max_abs_err={err:.3e}")
@@ -435,6 +499,7 @@ def run_case(name, calls, plain_calls, gate, costs, label,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms, "library_device_ms": library_dev_ms,
             "chain_ms": chain_ms, "chain_device_ms": chain_dev_ms,
+            "profiler_ms": prof_ms, "library_profiler_ms": lib_prof_ms,
             "label": label, "cost": {"flops": flops, "bytes": nbytes},
             "estimate": {**est, "bound_ms": bound(est["ops"], est["mem"],
                                                   peak)[0]}}
@@ -503,6 +568,33 @@ def kernel_phase(device="cuda") -> dict:
                  [lambda: ref.fused_retract_ref(a, b)], absolute(5e-5),
                  [_retract_cost(shape)], f"stress {shape}",
                  peak=PEAK_FLOPS_TF32X3)
+    # smollm-135m's Stiefel leaves under "polar_fused", as the full-width
+    # step calls the kernel: each leaf stacked over the 30 layers and 8
+    # nodes, wq / wo (576 x 576) on the global route (the (r, r) stage as
+    # tensor-core GEMMs over global memory), wk / wv (576 x 192) on the
+    # cluster route; then one layer's (8 nodes) and r = 257 on the global
+    # route; each call repeated bit for bit
+    from repro_torch import configs
+    from repro_torch.kernels import retract as _rt
+    stacked = TRAIN_NODES * configs.get_config("smollm-135m").n_layers
+    for shape, calls in (((stacked, 576, 576), 3), ((stacked, 576, 192), 3),
+                         ((TRAIN_NODES, 576, 576), 10),
+                         ((TRAIN_NODES, 576, 257), 10)):
+        a, b = _stiefel_inputs(shape, gen, device)
+        ctas = _rt.cluster_size(shape[-1])
+        route = f"cluster of {ctas}" if ctas else "global"
+        row = run_case("fused_retract", [lambda: ops.fused_retract(a, b)],
+                       [lambda: ref.fused_retract_ref(a, b)], absolute(5e-5),
+                       [_retract_cost(shape)], f"LM leaf {shape} [{route}]",
+                       peak=PEAK_FLOPS_TF32X3, profile_calls=calls)
+        if not torch.equal(ops.fused_retract(a, b), ops.fused_retract(a, b)):
+            raise AssertionError(f"fused_retract {shape}: two calls differ")
+        if (shape[-1] > _rt.MAX_R) != (ctas == 0):
+            raise AssertionError(f"fused_retract {shape}: route {ctas}")
+        if shape == (stacked, 576, 576):
+            rows["fused_retract_global"] = row
+        del a, b
+    log("  fused_retract: the LM leaves repeat bit for bit")
 
     # -- the library call of the ring mixes: W^k x as one fp32 GEMM per
     # leaf, with W^k taken in float64 and cast, as the dense mix path does
@@ -2003,9 +2095,10 @@ def attention_kernel_phase(device="cuda") -> dict:
 # heads
 TRAIN_NODES, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 64
 TRAIN_STEPS, TRAIN_EVAL_EVERY = 20, 10
-# the backward kernel against ref.attention_backward: fp32 on the CUDA
-# cores, sums over up to 2048 keys and 3 query heads in another order than
-# the plain version's GEMMs (first card call: 8.1e-7 at most)
+# the backward kernel against ref.attention_backward: 3xTF32 products on
+# the tensor cores (fp32 on the CUDA cores off that route), sums over up
+# to 2048 keys and 3 query heads in another order than the plain
+# version's GEMMs
 BWD_GATE = 1e-5     # relative to the largest |plain| value of dq, dk, dv
 
 
@@ -2023,16 +2116,24 @@ def _bwd_cost(q, k, v, mask):
     return flops, nbytes
 
 
-def _sdpa_backward(q, k, v, d_out):
-    """SDPA's backward (``torch.autograd.grad`` of one causal
+def _sdpa_backward(q, k, v, d_out, mask=None):
+    """SDPA's backward (``torch.autograd.grad`` of one
     ``scaled_dot_product_attention`` call, its graph built here, outside the
-    timed call) in the port's layout: the library's attention gradient."""
+    timed call) in the port's layout: the library's attention gradient.
+    Causal, or under the boolean (S, T) ``mask`` (a window), where the kv
+    heads are repeated for the query heads inside the graph."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
+    if mask is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    else:
+        g = q.shape[2] // k.shape[2]
+        out = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(g, dim=1), vt.repeat_interleave(g, dim=1),
+            attn_mask=mask)
     go = d_out.transpose(1, 2).contiguous()
     return lambda: [g.transpose(1, 2) for g in torch.autograd.grad(
         out, (qt, kt, vt), go, retain_graph=True)]
@@ -2040,11 +2141,13 @@ def _sdpa_backward(q, k, v, d_out):
 
 def attention_backward_phase(device="cuda") -> dict:
     """The attention backward kernel against ``ref.attention_backward`` at
-    the trainer's shape, with a window, and at S=T=2048 (GQA 9:3, fp32),
-    beside SDPA's backward where the mask is the plain causal one; bitwise
-    repeats; rows without keys pass zero gradient; bf16 raises.  Returns
-    the table row (the trainer's shape)."""
+    the trainer's shape, with a window, and at S=T=2048 (GQA 9:3, fp32,
+    hd 64: the tensor-core route), handed the forward's lse as the gradient
+    hands it, beside SDPA's backward under the same mask; bitwise repeats;
+    rows without keys pass zero gradient; bf16 raises.  Returns the table
+    row (the trainer's shape)."""
     import torch
+    from repro_torch.kernels import flash_attention as _fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -2062,19 +2165,26 @@ def attention_backward_phase(device="cuda") -> dict:
                         device=device)
         d_out = torch.randn((b, s, N_HEADS, HEAD_DIM), generator=gen,
                             device=device)
-        out = ops.flash_attention(q, k, v, window=window)
+        out, lse = ops.flash_attention(q, k, v, window=window,
+                                       return_lse=True)
         pos = torch.arange(s, dtype=torch.int32, device=device)[None]
         mask = _attn_mask(pos, pos, True, window).expand(b, s, s)
         args = (q, k, v, out, d_out)
+        route = _fa.backward_route(*args)
+        if route != "tensor_core":
+            raise AssertionError(f"flash_attention_bwd {label}: {route} route")
         row = run_case(
             "flash_attention_bwd",
-            [lambda: ops.flash_attention_backward(*args, window=window)],
+            [lambda: ops.flash_attention_backward(*args, window=window,
+                                                  lse=lse)],
             [lambda: ref.attention_backward(*args, window=window)],
-            relative(BWD_GATE), [_bwd_cost(q, k, v, mask)], label,
-            None if window else [_sdpa_backward(q, k, v, d_out)],
-            peak=PEAK_FLOPS_TF32X3, lib_gate=1e-3)
-        first = ops.flash_attention_backward(*args, window=window)
-        again = ops.flash_attention_backward(*args, window=window)
+            relative(BWD_GATE), [_bwd_cost(q, k, v, mask)],
+            f"{label} [{route}]",
+            [_sdpa_backward(q, k, v, d_out,
+                            mask[0] if window else None)],
+            peak=PEAK_FLOPS_TF32X3, lib_gate=1e-3, profile_calls=10)
+        first = ops.flash_attention_backward(*args, window=window, lse=lse)
+        again = ops.flash_attention_backward(*args, window=window, lse=lse)
         if not all(torch.equal(a, b_) for a, b_ in zip(first, again)):
             raise AssertionError(f"flash_attention_bwd {label}: two calls "
                                  f"differ")
@@ -2089,9 +2199,9 @@ def attention_backward_phase(device="cuda") -> dict:
     pos = torch.arange(256, dtype=torch.int32, device=device)[None]
     kvpos = torch.where(pos < 64, -1, pos)
     kw = dict(q_positions=pos, kv_positions=kvpos)
-    out = ops.flash_attention(q, kv, kv, **kw)
+    out, lse = ops.flash_attention(q, kv, kv, return_lse=True, **kw)
     d_out = torch.randn(out.shape, generator=gen, device=device)
-    got = ops.flash_attention_backward(q, kv, kv, out, d_out, **kw)
+    got = ops.flash_attention_backward(q, kv, kv, out, d_out, lse=lse, **kw)
     want = ref.attention_backward(q, kv, kv, out, d_out, **kw)
     err = max(float((a - w).abs().max()) for a, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
@@ -2102,7 +2212,8 @@ def attention_backward_phase(device="cuda") -> dict:
         f"exact zeros (max_abs_err={err:.3e})")
     try:
         ops.flash_attention_backward(*(x.to(torch.bfloat16) for x in
-                                       (q, kv, kv, out, d_out)), **kw)
+                                       (q, kv, kv, out, d_out)), lse=lse,
+                                     **kw)
     except TypeError as exc:
         log(f"  bf16 raises: {exc}")
     else:
@@ -2111,18 +2222,27 @@ def attention_backward_phase(device="cuda") -> dict:
     return rows
 
 
-def _train_launches(cfg, steps: int, metric_calls: int):
+def _train_launches(cfg, steps: int, metric_calls: int,
+                    retraction: str = "polar"):
     """The trainer's launches, derived from the code: (per step, in all)
     for ``steps`` DRSGDA steps after the init and ``metric_calls``
     ``convergence_metric`` calls.  A gradient runs the forward kernel once
-    and the backward kernels twice (dq, then dk/dv) per layer and projects
+    and the backward kernels (``flash_attention.backward_launches``: dq,
+    dk/dv and, on the tensor-core route under GQA, the group sum) per
+    layer and projects
     the Stiefel tree in one grouped call (``stiefel_project_leaves``: one
     launch per 16 on-chip leaves, two per streaming leaf); a step takes one
-    gradient, that projection, and the polar ``descent_update``'s two
-    single-leaf projections per Stiefel leaf, and mixes x, u (one grouped
-    ring call per 16 leaves) and y, v (one leaf each); a metric call takes
-    the global gradient at the consensus point (forward, backward,
-    projection) and y* (forward)."""
+    gradient, that projection, and the retraction of each Stiefel leaf:
+    under ``"polar"`` the ``descent_update``'s two single-leaf projections
+    and plain products, under ``"polar_fused"`` one ``fused_retract``
+    launch (the projection inside it), on the global route where
+    ``retract.cluster_size(r)`` is 0 (``fused_retract_global``, a part of
+    ``fused_retract``); it mixes x, u (one grouped ring call
+    per 16 leaves) and y, v (one leaf each); a metric call takes the global
+    gradient at the consensus point (forward, backward, projection) and y*
+    (forward)."""
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import retract as _rt
     from repro_torch.kernels import stiefel_project as _sp
     from repro_torch.models import transformer as T
     from repro_torch.objectives import lm
@@ -2141,15 +2261,25 @@ def _train_launches(cfg, steps: int, metric_calls: int):
 
     tree = project(stiefel)
     layers = cfg.n_layers
-    per_step = {"flash_attention": layers, "flash_attention_bwd": 2 * layers,
-                "stiefel_project": tree + 2 * sum(project([leaf])
-                                                  for leaf in stiefel),
-                "ring_mix": 2 * -(-len(xs) // 16) + 2}
-    init = {"flash_attention": layers, "flash_attention_bwd": 2 * layers,
-            "stiefel_project": tree, "ring_mix": 0}
+    # the backward's launches a layer: its tensor-core route (head dims
+    # multiples of 16 up to 128), three under GQA
+    route = "tensor_core" if cfg.hd % 16 == 0 and cfg.hd <= 128 else "simt"
+    bwd = layers * _fa.backward_launches(route, cfg.n_heads, cfg.n_kv_heads)
+    fused = retraction == "polar_fused"
+    per_step = {"flash_attention": layers, "flash_attention_bwd": bwd,
+                "stiefel_project": tree + (0 if fused else 2 * sum(
+                    project([leaf]) for leaf in stiefel)),
+                "ring_mix": 2 * -(-len(xs) // 16) + 2,
+                "fused_retract": len(stiefel) if fused else 0,
+                "fused_retract_global": sum(
+                    1 for _, r in stiefel if _rt.cluster_size(r) == 0)
+                if fused else 0}
+    init = {"flash_attention": layers, "flash_attention_bwd": bwd,
+            "stiefel_project": tree, "ring_mix": 0, "fused_retract": 0,
+            "fused_retract_global": 0}
     metric = {"flash_attention": 2 * layers,
-              "flash_attention_bwd": 2 * layers, "stiefel_project": tree,
-              "ring_mix": 0}
+              "flash_attention_bwd": bwd, "stiefel_project": tree,
+              "ring_mix": 0, "fused_retract": 0, "fused_retract_global": 0}
     total = {k: steps * per_step[k] + init[k] + metric_calls * metric[k]
              for k in per_step}
     return per_step, total
@@ -2183,7 +2313,8 @@ class _PlainAttentionCalls:
 
 def _all_counts() -> dict:
     from repro_torch.kernels import ops
-    return {**ops.launch_counts(), **ops.backward_launch_counts()}
+    return {**ops.launch_counts(), **ops.backward_launch_counts(),
+            **ops.route_launch_counts()}
 
 
 def train_phase() -> dict:
@@ -2279,24 +2410,35 @@ def train_phase() -> dict:
     counts = dict(got)
     _train_step_profile(cfg, per_step)
     torch.cuda.empty_cache()
-    return counts
+    # (f) the same step under "polar_fused": fused_retract on every Stiefel
+    # leaf, wq / wo (576 x 576) on its global route
+    per_step, _ = _train_launches(cfg, 1, 0, "polar_fused")
+    fused = _train_step_profile(cfg, per_step, "polar_fused")
+    torch.cuda.empty_cache()
+    return counts, fused
 
 
-def _train_step_profile(cfg, per_step: dict, steps: int = 10) -> None:
-    """(e) The full-width DRSGDA step at the CLI defaults: the median of
-    ``steps`` synchronized steps after 3 warm-up steps, the polar
-    retraction of the Stiefel leaves alone (CUDA events), and one profiled
-    step: device time, busy share, the port's kernels, the top kernels,
-    and its launches against ``per_step``."""
+def _train_step_profile(cfg, per_step: dict, retraction: str = "polar",
+                        steps: int = 10) -> dict:
+    """(e) The full-width DRSGDA step at the CLI defaults (its hyper with
+    ``retraction``): the median of ``steps`` synchronized steps after 3
+    warm-up steps, the retraction of the Stiefel leaves alone (CUDA
+    events), and one profiled step: device time, busy share, the port's
+    kernels, the top kernels, and its launches against ``per_step``.
+    Returns the profiled step's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.convert import lm_batch_to_torch
+    from repro_torch.core.gda import GDAHyper
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import build_trainer, init_train_state
+    from repro_torch.launch.steps import (TrainSpec, build_trainer,
+                                          init_train_state)
     from repro_torch.tree import tree_flatten
 
-    opt, problem = build_trainer(cfg, TRAIN_NODES)
+    # build_trainer's default hyper, with the retraction named
+    hyper = GDAHyper(alpha=0.5, beta=0.02, eta=0.05, retraction=retraction)
+    opt, problem = build_trainer(cfg, TRAIN_NODES, TrainSpec(hyper=hyper))
     stream = TokenStream(TRAIN_NODES, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
                          n_groups=cfg.n_groups, seed=0)
     state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
@@ -2319,6 +2461,9 @@ def _train_step_profile(cfg, per_step: dict, steps: int = 10) -> None:
         tree_flatten(state.u)[0]) if m.name == "stiefel"]
 
     def retract():
+        if retraction == "polar_fused":
+            return [m.retract(x, h.alpha * x - h.beta * u, retraction)
+                    for m, x, u in leaves]
         return [m.descent_update(x, x, u, alpha=h.alpha, beta=h.beta,
                                  kind="polar", method=h.invsqrt)
                 for m, x, u in leaves]
@@ -2336,17 +2481,19 @@ def _train_step_profile(cfg, per_step: dict, steps: int = 10) -> None:
     device_us = sum(k[0] for k in kernels)
     own_us = sum(k[0] for k in kernels if own.search(k[2]))
     bwd_us = sum(k[0] for k in kernels if "attn_bwd" in k[2])
-    log(f"  full-width DRSGDA step: {wall_us:.1f} us wall (median of "
+    log(f"  full-width DRSGDA step, {retraction!r}: {wall_us:.1f} us wall "
+        f"(median of "
         f"{steps} synchronized steps; min {min(walls):.1f}, max "
         f"{max(walls):.1f}); {device_us:.1f} us of device time in "
         f"{sum(k[1] for k in kernels):.0f} kernels (device busy "
         f"{100 * device_us / wall_us:.1f}% of the wall); the port's CUDA "
         f"kernels {own_us:.1f} us, of which the attention backward "
-        f"{bwd_us:.1f}; the polar retraction of the "
-        f"{len(leaves)} Stiefel leaves alone {retract_ms:.3f} ms (CUDA "
-        f"events); launches {got}")
+        f"{bwd_us:.1f}; the {retraction} "
+        f"retraction of the {len(leaves)} Stiefel leaves alone "
+        f"{retract_ms:.3f} ms (CUDA events); launches {got}")
     for us, count, key in kernels[:12]:
         log(f"    {us:9.1f} us/step  x{count:4.0f}  {key[:100]}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -2710,7 +2857,7 @@ def main() -> int:
     serve_agreement_phase()
     # last: its full-width states take half the card's memory
     log("LM training:")
-    paths["train"] = train_phase()
+    paths["train"], paths["train_polar_fused"] = train_phase()
 
     # each kernel's launches come from the path it belongs to; every path's
     # counts stand beside them
@@ -2719,11 +2866,21 @@ def main() -> int:
             "train" if name in TRAIN_PATH else "serving"
             for name in KERNEL_META}
     table = []
-    for name, (source, replaces) in KERNEL_META.items():
-        row = rows[name]
-        table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces,
-                      "launches": paths[home[name]][name],
+    # fused_retract has two rows: its cluster routes (r <= 256, the fair
+    # main path) and its global route (r > 256: smollm-135m's wq / wo under
+    # "polar_fused", whose step's launches of that route it reports)
+    variants = [(name, name, home[name], name) for name in KERNEL_META]
+    variants.insert(2, ("fused_retract", "fused_retract_global",
+                        "train_polar_fused", "fused_retract_global"))
+    for name, key, path, count in variants:
+        source, replaces = KERNEL_META[name]
+        row = rows[key]
+        extra = ({"variant": "global route (r > 256)"} if key != name else
+                 {"variant": "cluster routes (r <= 256)"}
+                 if name == "fused_retract" else {})
+        table.append({"name": name, **extra, "route": "cuda",
+                      "source": source, "replaces": replaces,
+                      "launches": paths[path][count],
                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                       "plain_ms": row["plain_ms"],
                       "bound_ms": row["bound_ms"],
@@ -2733,8 +2890,8 @@ def main() -> int:
                       "library_device_ms": row["library_device_ms"],
                       "chain_ms": row["chain_ms"],
                       "chain_device_ms": row["chain_device_ms"],
-                      "path_launches": {path: counts.get(name, 0)
-                                        for path, counts in paths.items()}})
+                      "path_launches": {p: counts.get(count, 0)
+                                        for p, counts in paths.items()}})
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,11 @@
 // the output by up to about |out| * 2^-10, which with the output's own
 // bf16 rounding passes the 2e-2 gate once |out| nears 8.
 //
+// Where the caller asks (the gradient under autograd), either route also
+// writes each query row's log-sum-exp of its scaled scores (natural log,
+// (B, H, S) fp32), so the backward kernel (flash_attention_bwd.cu)
+// recomputes q.k only twice per (query, key, head) and not three times.
+//
 // Kept from the first version: the kv head is h / (H / Hkv), so K and V
 // are read in place for every query head of a group; q, k, v stay in the
 // public (B, S, H, hd) layout and the kernel masks the ragged S and T
@@ -68,6 +73,7 @@
 // on CUDA cores from shared memory.  The route is chosen by shape in the
 // C entry point; either way the call is one launch.
 #include <algorithm>
+#include <cfloat>
 #include <climits>
 
 #include "attention.cuh"
@@ -224,9 +230,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ qpos,
-                 const int* __restrict__ kpos, T* __restrict__ out, int S,
-                 int Tk, int H, int Hkv, int hd, int hdv, float scale,
-                 bool causal, int window, int R, int BK) {
+                 const int* __restrict__ kpos, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int Tk, int H, int Hkv,
+                 int hd, int hdv, float scale, bool causal, int window, int R,
+                 int BK) {
   extern __shared__ __align__(16) float smem[];
   const Tiles t = carve(smem, R, BK, hd, hdv);
   const int b = blockIdx.z, h = blockIdx.y, s0 = blockIdx.x * R;
@@ -280,13 +287,17 @@ __global__ void __launch_bounds__(kThreads)
     out[(((size_t)b * S + s0 + r) * H + h) * hdv + j] =
         attn::from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
   }
+  if (lse != nullptr)
+    for (int r = tid; r < rows; r += nt)
+      lse[((size_t)b * H + h) * S + s0 + r] =
+          t.m[r] + logf(fmaxf(t.l[r], FLT_MIN));
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
-           const int* kpos, void* out, int B, int S, int Tk, int H, int Hkv,
-           int hd, int hdv, float scale, int causal, int window,
-           cudaStream_t st) {
+           const int* kpos, void* out, float* lse, int B, int S, int Tk,
+           int H, int Hkv, int hd, int hdv, float scale, int causal,
+           int window, cudaStream_t st) {
   static bool smem_set = false;
   // query rows per block: the smallest power of two >= S, at most 64
   int R = 64;
@@ -299,8 +310,8 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
   const dim3 grid((S + R - 1) / R, H, B);
   flash_kernel<T><<<grid, kThreads, smem_bytes(R, BK, hd, hdv), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), S, Tk, H,
-      Hkv, hd, hdv, scale, causal != 0, window, R, BK);
+      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), lse, S, Tk,
+      H, Hkv, hd, hdv, scale, causal != 0, window, R, BK);
   REPRO_LAUNCH_CHECK();
   return 0;
 }
@@ -481,9 +492,10 @@ template <typename T, int D>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ qpos,
-                    const int* __restrict__ kpos, T* __restrict__ out, int S,
-                    int Tk, int H, int Hkv, int hd, int hdv, float scale,
-                    bool causal, int window, int WR, int WK) {
+                    const int* __restrict__ kpos, T* __restrict__ out,
+                    float* __restrict__ lse, int S, int Tk, int H, int Hkv,
+                    int hd, int hdv, float scale, bool causal, int window,
+                    int WR, int WK) {
   using L = Layout<T, D>;
   constexpr int BN = L::BN, LD = L::LD, KS = Cfg<T>::kKS;
   constexpr int NT = BN / 8;  // n8 tiles of scores per key tile
@@ -796,6 +808,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       }
     }
   }
+  // the rows' log-sum-exp for the backward (natural log; m is in log2
+  // units), where the caller asks for it
+  if (lse != nullptr && tig == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (r0 < S)
+      lse[((size_t)b * H + h) * S + r0] = (m0 + log2f(fmaxf(l0, FLT_MIN))) * kLn2;
+    if (r1 < S)
+      lse[((size_t)b * H + h) * S + r1] = (m1 + log2f(fmaxf(l1, FLT_MIN))) * kLn2;
+  }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int i = 0; i < VT; ++i) {
@@ -819,9 +840,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const int* qpos,
-             const int* kpos, void* out, int B, int S, int Tk, int H, int Hkv,
-             int hd, int hdv, float scale, int causal, int window,
-             cudaStream_t st) {
+             const int* kpos, void* out, float* lse, int B, int S, int Tk,
+             int H, int Hkv, int hd, int hdv, float scale, int causal,
+             int window, cudaStream_t st) {
   using L = Layout<T, D>;
   static bool smem_set = false;
   cudaError_t err = attn::allow_smem(flash_tc_kernel<T, D>, &smem_set);
@@ -841,8 +862,8 @@ int launch_d(const void* q, const void* k, const void* v, const int* qpos,
   const dim3 grid((S + 16 * wr - 1) / (16 * wr), H, B);
   flash_tc_kernel<T, D><<<grid, 32 * wr * wk, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), S, Tk, H,
-      Hkv, hd, hdv, scale, causal != 0, window, wr, wk);
+      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), lse, S, Tk,
+      H, Hkv, hd, hdv, scale, causal != 0, window, wr, wk);
   REPRO_LAUNCH_CHECK();
   return 0;
 }
@@ -860,17 +881,17 @@ inline bool takes(const void* q, const void* k, const void* v,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
-           const int* kpos, void* out, int B, int S, int Tk, int H, int Hkv,
-           int hd, int hdv, float scale, int causal, int window,
-           cudaStream_t st) {
+           const int* kpos, void* out, float* lse, int B, int S, int Tk,
+           int H, int Hkv, int hd, int hdv, float scale, int causal,
+           int window, cudaStream_t st) {
   const int d = max(hd, hdv);
   if (d <= 32)
-    return launch_d<T, 32>(q, k, v, qpos, kpos, out, B, S, Tk, H, Hkv, hd,
+    return launch_d<T, 32>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv, hd,
                            hdv, scale, causal, window, st);
   if (d <= 64)
-    return launch_d<T, 64>(q, k, v, qpos, kpos, out, B, S, Tk, H, Hkv, hd,
+    return launch_d<T, 64>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv, hd,
                            hdv, scale, causal, window, st);
-  return launch_d<T, 128>(q, k, v, qpos, kpos, out, B, S, Tk, H, Hkv, hd,
+  return launch_d<T, 128>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv, hd,
                           hdv, scale, causal, window, st);
 }
 
@@ -878,13 +899,13 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
-           const int* kpos, void* out, int B, int S, int Tk, int H, int Hkv,
-           int hd, int hdv, float scale, int causal, int window,
-           cudaStream_t st) {
+           const int* kpos, void* out, float* lse, int B, int S, int Tk,
+           int H, int Hkv, int hd, int hdv, float scale, int causal,
+           int window, cudaStream_t st) {
   if (tc::takes(q, k, v, out, hd, hdv))
-    return tc::launch<T>(q, k, v, qpos, kpos, out, B, S, Tk, H, Hkv, hd, hdv,
+    return tc::launch<T>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv, hd, hdv,
                          scale, causal, window, st);
-  return simt::launch<T>(q, k, v, qpos, kpos, out, B, S, Tk, H, Hkv, hd, hdv,
+  return simt::launch<T>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv, hd, hdv,
                          scale, causal, window, st);
 }
 
@@ -901,19 +922,21 @@ REPRO_API int repro_flash_attention_route(const void* q, const void* k,
 // q (B, S, H, hd), k (B, T, Hkv, hd), v (B, T, Hkv, hdv), out (B, S, H, hdv),
 // all contiguous, fp32 (bf16 = 0) or bf16 (bf16 = 1); positions (B, S) and
 // (B, T) int32.  H % Hkv == 0, hd and hdv <= 256, B and H <= 65535, S >= 1.
-// window <= 0: no window.
+// window <= 0: no window.  lse: null, or (B, H, S) fp32 for the rows'
+// log-sum-exp of the scaled scores (the backward's P = exp(s - lse); a
+// row without keys gets about -1e30).
 REPRO_API int repro_flash_attention(const void* q, const void* k,
                                     const void* v, const int* qpos,
-                                    const int* kpos, void* out, int B, int S,
-                                    int Tk, int H, int Hkv, int hd, int hdv,
-                                    float scale, int causal, int window,
-                                    int bf16, void* stream) {
+                                    const int* kpos, void* out, float* lse,
+                                    int B, int S, int Tk, int H, int Hkv,
+                                    int hd, int hdv, float scale, int causal,
+                                    int window, int bf16, void* stream) {
   if (hd > attn::kMaxHeadDim || hdv > attn::kMaxHeadDim || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, qpos, kpos, out, B, S, Tk, H, Hkv,
+    return launch<__nv_bfloat16>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv,
                                  hd, hdv, scale, causal, window, st);
-  return launch<float>(q, k, v, qpos, kpos, out, B, S, Tk, H, Hkv, hd, hdv,
+  return launch<float>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv, hd, hdv,
                        scale, causal, window, st);
 }

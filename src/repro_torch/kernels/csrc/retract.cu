@@ -9,15 +9,19 @@
 //   B = x^T g,  C = g^T g,  S = sym(B),  u^T u = C - B^T S - S B + S S,
 //   out = x M1 + g M2,  M2 = inv = (I + u^T u)^{-1/2},  M1 = (I - S) inv,
 // with inv from the coupled Newton--Schulz iteration (inf-norm scaling,
-// ns_iters iterations, as geometry/stiefel.py does).
+// ns_iters iterations, as geometry/stiefel.py does).  The TPU wrapper pads
+// r to the 128-lane boundary and takes any r; so does this one.
 //
 // Bound on the H100: operations.  At the fair fc1 shape (20, 784, 64) one
 // call is 2 x 2 d r^2 flops of Grams plus 2 x 2 d r^2 of apply per node and
 // ns_iters x 3 products of 2 r^3 flops; 12 MB of unique bytes.  The
 // Newton--Schulz chain is sequential: 63 dependent (r, r) products per
-// node, each too small to fill an SM, so latency bounds the stage.
+// node, each too small to fill an SM at small r, so latency bounds the
+// stage there; at r = 576 (smollm-135m's wq / wo) the chain's 22.9 GFLOP a
+// node are the work.
 //
-// Design: three launches instead of the TPU's one.
+// Design: the Grams and the apply are launches of their own; the (r, r)
+// stage between them takes one of three routes by r.
 //   1. The Grams B and C: gram_kernel<kGramTwo> (tall.cuh) on the tensor
 //      cores as 3xTF32, the d reduction added inside a cluster per tile.
 //   2. The (r, r) stage, from B and C to M1 and M2:
@@ -41,15 +45,37 @@
 //          first, then each peer's, copied once through distributed shared
 //          memory into a staging panel while the panel before it is
 //          multiplied.  Seven panels fit in 227 KB up to r = 256 (P = 32,
-//          CS = 8: 229,376 bytes), so no matrix goes to global memory; a
-//          larger r raises in the wrapper.
-//      Products are register-tiled fp32 FMA (TR x TC outputs a thread,
-//      compile-time bounds, float4 shared-memory loads, no bounds checks:
-//      the padding is zeros), summed over k in one fixed order per CTA.
+//          CS = 8: 229,376 bytes), so no matrix goes to global memory.
+//        Products are register-tiled fp32 FMA (TR x TC outputs a thread,
+//        compile-time bounds, float4 shared-memory loads, no bounds
+//        checks: the padding is zeros), summed over k in one fixed order
+//        per CTA.
+//      * r > kMaxR: the global route (namespace glob).  At r = 576 the
+//        seven fp32 (r, r) matrices of a node are 9.3 MB, far over a
+//        cluster's shared memory, but a node's working set stays in the
+//        50 MB L2.  Every (r, r) product is a node-batched tiled GEMM on
+//        the tensor cores as 3xTF32 (ns_mm_kernel: tall.cuh's 64 x 64 block
+//        tile, cp.async staging and per-k-step partials, mma_tile), the
+//        elementwise steps are small kernels of their own, and the launch
+//        boundaries are the barriers; every product that is symmetric in
+//        exact arithmetic (S S and the Newton--Schulz products: Y, Z and
+//        T are polynomials in A) computes only its tiles on and above the
+//        diagonal and stores each off-diagonal one at its mirror too (45
+//        of 81 tiles at r = 576).  Launches: sym (S, B^T); mm {B^T S, S S};
+//        form_a (A = I + u^T u and its row sums); scale (c, Y_0 = A / c,
+//        Z_0 = I); per iteration mm {T = (3 I - Z Y) / 2} and mm {Y T,
+//        T Z} (they read only the T before them, so they share one
+//        launch); finish (M2 = Z / sqrt(c), I - S); mm {M1}.  That is
+//        2 ns_iters + 6 launches, 48 a call with the Grams and the apply
+//        at ns_iters = 20.  No atomics: c is the max of the row sums,
+//        which every scale block takes over the same r values.
 //   3. out = x M1 + g M2: apply_kernel<kApplyRetract> (tall.cuh, 3xTF32).
-// The (r, r) stage is fp32 FMA on CUDA cores; the tall products are 3xTF32,
-// fp32-accurate: plain TF32 breaks the 5e-5 gate.
+// The cluster routes' (r, r) stage is fp32 FMA on CUDA cores; every other
+// product is 3xTF32, fp32-accurate: plain TF32 breaks the 5e-5 gate, and
+// so does accumulating in the mma over a whole reduction (tall.cuh).
 #include <cooperative_groups.h>
+
+#include <initializer_list>
 
 #include "tall.cuh"
 
@@ -59,7 +85,8 @@ namespace {
 
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
 constexpr int kSmallR = 32;       // r <= kSmallR: one block per node
-constexpr int kMaxR = 256;        // retract.py's MAX_R
+constexpr int kMaxR = 256;        // retract.py's MAX_R: the cluster
+                                  // routes' edge; above, the global one
 
 // ---------------------------------------------------------------------------
 // r <= kSmallR: one block per node, one thread per element
@@ -660,28 +687,288 @@ int launch_finalize(const float* pb, const float* pc, float* m1, float* m2,
                                 m2, batch, r, ns_iters, st);
 }
 
+// ---------------------------------------------------------------------------
+// r > kMaxR: the (r, r) stage in global memory
+// ---------------------------------------------------------------------------
+namespace glob {
+
+constexpr int kEw = 256;        // threads of an elementwise block
+constexpr int kEwBlocks = 64;   // elementwise blocks a node (grid-stride)
+constexpr int kRowWarps = 8;    // rows of A a form_a block
+
+// One product of a launch: c = a b of (batch, r, r) row-major matrices, or
+// with ns_t the Newton--Schulz T = (3 I - a b) / 2.  With sym the product
+// is symmetric in exact arithmetic (S S, and every Newton--Schulz product:
+// Y, Z and T are polynomials in A, so they commute), and only the tiles on
+// and above the diagonal are computed, each off-diagonal one stored at its
+// mirror too: 45 of 81 tiles at r = 576.
+struct Mm {
+  const float* a;
+  const float* b;
+  float* c;
+  int ns_t;
+  int sym;
+};
+struct MmPair {
+  Mm job[2];
+};
+
+// grid (tiles, batch, jobs), 128 threads: one 64 x 64 tile of one node's
+// product, tall.cuh's apply tile (4 warps of 32 x 32, two cp.async stages
+// of kBK = 32 along k, mma_tile's per-k-step partials) with A and B both
+// (r, r).  Tile x of a job: row-major over all T x T tiles, or with sym
+// over the pairs ti <= tj, row by row (blocks past them leave).
+__global__ void __launch_bounds__(tall::kThreads)
+ns_mm_kernel(MmPair jobs, int r, int vec) {
+  using namespace tall;
+  extern __shared__ __align__(16) float sm[];
+  constexpr int kA = kTile * kLdA;
+  constexpr int kStage = kA + kBK * kLd;
+  const Mm job = blockIdx.z == 0 ? jobs.job[0] : jobs.job[1];
+  const int T = ceil_div(r, kTile);
+  int ti, tj;
+  if (job.sym) {
+    int x = blockIdx.x;
+    if (x >= T * (T + 1) / 2) return;
+    ti = 0;
+    while (x >= T - ti) x -= T - ti++;
+    tj = ti + x;
+  } else {
+    ti = blockIdx.x / T;
+    tj = blockIdx.x % T;
+  }
+  const int m0 = ti * kTile, j0 = tj * kTile;
+  const bool mirror = job.sym && ti != tj;
+  const size_t off = (size_t)blockIdx.y * r * r;
+  const float* ab = job.a + off;
+  const float* bb = job.b + off;
+  const int steps = ceil_div(r, kBK);
+  auto stage = [&](int s) {
+    float* dst = sm + (s & 1) * kStage;
+    const int k0 = s * kBK;
+    stage_block<kTile, kBK, kLdA>(dst, ab, m0, r, k0, r, vec != 0);
+    stage_rows(dst + kA, bb, k0, r, j0, r, vec != 0);
+  };
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int gq = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float acc[2][4][4] = {};
+  stage(0);
+  tcore::cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) stage(s + 1);
+    tcore::cp_async_commit();
+    tcore::cp_async_wait<1>();
+    __syncthreads();
+    const float* sa = sm + (s & 1) * kStage;
+    const float* sb = sa + kA;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* row = sa + (wm + 16 * mt + gq) * kLdA + kk + t;
+        tcore::split(row[0], ah[mt][0], al[mt][0]);
+        tcore::split(row[8 * kLdA], ah[mt][1], al[mt][1]);
+        tcore::split(row[4], ah[mt][2], al[mt][2]);
+        tcore::split(row[8 * kLdA + 4], ah[mt][3], al[mt][3]);
+      }
+      frag_b(sb, kk, wn, bh, bl);
+      mma_tile(acc, ah, al, bh, bl);
+    }
+    __syncthreads();
+  }
+  tcore::cp_async_wait<0>();
+  float* cb = job.c + off;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = m0 + wm + 16 * mt + gq + (q >> 1) * 8;
+        const int j = j0 + wn + 8 * nt + 2 * t + (q & 1);
+        if (i < r && j < r) {
+          const float v = acc[mt][nt][q];
+          const float x = job.ns_t ? 0.5f * ((i == j ? 3.f : 0.f) - v) : v;
+          cb[(size_t)i * r + j] = x;
+          if (mirror) cb[(size_t)j * r + i] = x;
+        }
+      }
+}
+
+// S = sym(B) and B^T, elementwise; grid (kEwBlocks, batch)
+__global__ void __launch_bounds__(kEw)
+ns_sym_kernel(const float* __restrict__ pb, float* __restrict__ s,
+           float* __restrict__ bt, int r) {
+  const size_t rr = (size_t)r * r, off = blockIdx.y * rr;
+  for (size_t e = blockIdx.x * (size_t)kEw + threadIdx.x; e < rr;
+       e += (size_t)gridDim.x * kEw) {
+    const int i = (int)(e / r), j = (int)(e % r);
+    const float bij = pb[off + e], bji = pb[off + (size_t)j * r + i];
+    s[off + e] = 0.5f * (bij + bji);
+    bt[off + e] = bji;
+  }
+}
+
+// A = I + u^T u,  u^T u = C - B^T S - (B^T S)^T + S S (p1 = B^T S,
+// p2 = S S), one warp a row, and the row's sum of |A_ij| (a fixed
+// shuffle tree); grid (ceil(r / kRowWarps), batch)
+__global__ void __launch_bounds__(32 * kRowWarps)
+ns_form_a_kernel(const float* __restrict__ pc, const float* __restrict__ p1,
+              const float* __restrict__ p2, float* __restrict__ a,
+              float* __restrict__ rowsum, int r) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (i >= r) return;   // whole warps leave: no shuffle below misses a lane
+  const size_t off = blockIdx.y * (size_t)r * r;
+  float acc = 0.f;
+  for (int j = lane; j < r; j += 32) {
+    const size_t e = off + (size_t)i * r + j;
+    const float x = (i == j ? 1.f : 0.f) +
+                    (((pc[e] - p1[e]) - p1[off + (size_t)j * r + i]) + p2[e]);
+    a[e] = x;
+    acc += fabsf(x);
+  }
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) rowsum[(size_t)blockIdx.y * r + i] = acc;
+}
+
+// c = max_i rowsum_i + 1e-6 (each block over the node's r row sums),
+// Y_0 = A / c in place, Z_0 = I; block 0 keeps c; grid (kEwBlocks, batch)
+__global__ void __launch_bounds__(kEw)
+ns_scale_kernel(float* __restrict__ y, float* __restrict__ z,
+             const float* __restrict__ rowsum, float* __restrict__ cbuf,
+             int r) {
+  __shared__ float c_sh;
+  const int b = blockIdx.y;
+  if (threadIdx.x < 32) {
+    float m = 0.f;
+    for (int i = threadIdx.x; i < r; i += 32)
+      m = fmaxf(m, rowsum[(size_t)b * r + i]);
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (threadIdx.x == 0) c_sh = m + 1e-6f;
+  }
+  __syncthreads();
+  const float c = c_sh;
+  if (blockIdx.x == 0 && threadIdx.x == 0) cbuf[b] = c;
+  const size_t rr = (size_t)r * r, off = b * rr;
+  for (size_t e = blockIdx.x * (size_t)kEw + threadIdx.x; e < rr;
+       e += (size_t)gridDim.x * kEw) {
+    y[off + e] = y[off + e] / c;
+    z[off + e] = e / r == e % r ? 1.f : 0.f;
+  }
+}
+
+// M2 = inv = Z / sqrt(c) (z and m2 may be one buffer), W = I - S;
+// grid (kEwBlocks, batch)
+__global__ void __launch_bounds__(kEw)
+ns_finish_kernel(const float* z, const float* __restrict__ s,
+              const float* __restrict__ cbuf, float* m2,
+              float* __restrict__ w, int r) {
+  const float rs = 1.f / sqrtf(cbuf[blockIdx.y]);
+  const size_t rr = (size_t)r * r, off = blockIdx.y * rr;
+  for (size_t e = blockIdx.x * (size_t)kEw + threadIdx.x; e < rr;
+       e += (size_t)gridDim.x * kEw) {
+    m2[off + e] = z[off + e] * rs;
+    w[off + e] = (e / r == e % r ? 1.f : 0.f) - s[off + e];
+  }
+}
+
+inline bool aligned(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (!tall::aligned16(p)) return false;
+  return true;
+}
+
+// One ns_mm_kernel launch of one or two products.
+inline int mm(Mm a, Mm b, int jobs, int batch, int r, cudaStream_t st) {
+  using namespace tall;
+  constexpr int kBytes = 2 * (kTile * kLdA + kBK * kLd) * (int)sizeof(float);
+  static_assert(kBytes <= 48 * 1024, "ns_mm_kernel: static shared-memory limit");
+  const int vec = r % 4 == 0 && aligned({a.a, a.b, a.c}) &&
+                  (jobs < 2 || aligned({b.a, b.b, b.c}));
+  const int T = ceil_div(r, kTile);
+  const bool all_sym = a.sym && (jobs < 2 || b.sym);
+  const int tiles = all_sym ? T * (T + 1) / 2 : T * T;
+  ns_mm_kernel<<<dim3((unsigned)tiles, (unsigned)batch, (unsigned)jobs),
+                 kThreads, kBytes, st>>>(MmPair{{a, b}}, r, vec);
+  return (int)cudaGetLastError();
+}
+
+// Floats of scratch: four (batch, r, r) matrices, the row sums, c.
+inline size_t workspace(int batch, int r) {
+  return 4 * (size_t)batch * r * r + (size_t)batch * r + batch;
+}
+
+int finalize(const float* pb, const float* pc, float* m1, float* m2,
+             float* ws, int batch, int r, int ns_iters, cudaStream_t st) {
+  const size_t mat = (size_t)batch * r * r;
+  float* s = ws;                 // S, kept to the end
+  float* w1 = ws + mat;          // B^T, then A, then Y (or Y_new)
+  float* w2 = ws + 2 * mat;      // B^T S, then Z (or Z_new)
+  float* w3 = ws + 3 * mat;      // S S, then T, then I - S
+  float* rowsum = ws + 4 * mat;
+  float* cbuf = rowsum + (size_t)batch * r;
+  const dim3 ew(kEwBlocks, batch);
+  int err;
+  ns_sym_kernel<<<ew, kEw, 0, st>>>(pb, s, w1, r);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = mm({w1, s, w2, 0, 0}, {s, s, w3, 0, 1}, 2, batch, r, st)))
+    return err;
+  ns_form_a_kernel<<<dim3((r + kRowWarps - 1) / kRowWarps, batch),
+                  32 * kRowWarps, 0, st>>>(pc, w2, w3, w1, rowsum, r);
+  if ((err = (int)cudaGetLastError())) return err;
+  ns_scale_kernel<<<ew, kEw, 0, st>>>(w1, w2, rowsum, cbuf, r);
+  if ((err = (int)cudaGetLastError())) return err;
+  float *y = w1, *z = w2, *yn = m1, *zn = m2;
+  for (int it = 0; it < ns_iters; ++it) {
+    if ((err = mm({z, y, w3, 1, 1}, {}, 1, batch, r, st))) return err;
+    if ((err = mm({y, w3, yn, 0, 1}, {w3, z, zn, 0, 1}, 2, batch, r, st)))
+      return err;
+    float* tmp = y; y = yn; yn = tmp;
+    tmp = z; z = zn; zn = tmp;
+  }
+  ns_finish_kernel<<<ew, kEw, 0, st>>>(z, s, cbuf, m2, w3, r);
+  if ((err = (int)cudaGetLastError())) return err;
+  return mm({w3, m2, m1, 0, 0}, {}, 1, batch, r, st);
+}
+
+}  // namespace glob
+
 }  // namespace
 
-// CTAs per node of the (r, r) stage: 1 for r <= 32, else the cluster size;
-// 0 for an r above kMaxR.  For tests and the smoke run.
+// CTAs per node of the (r, r) stage: 1 for r <= 32, else the cluster size
+// up to kMaxR; 0 above kMaxR (the global route, no cluster); -1 for r < 1.
+// For tests and the smoke run.
 REPRO_API int repro_fused_retract_cluster(int r) {
-  if (r < 1 || r > kMaxR) return 0;
+  if (r < 1) return -1;
+  if (r > kMaxR) return 0;
   if (r <= kSmallR) return 1;
   return r <= Cfg64::RP ? Cfg64::CS : r <= Cfg128::RP ? Cfg128::CS
                                                       : Cfg256::CS;
 }
 
-// x, g, out: (batch, d, r) with 1 <= r <= kMaxR; pb, pc: (batch, r, r),
-// the Grams B and C; m1, m2: (batch, r, r).  Three launches.
+// Floats of scratch ``ws`` a call needs (0 up to kMaxR).
+REPRO_API long long repro_fused_retract_workspace(int batch, int r) {
+  return r > kMaxR ? (long long)glob::workspace(batch, r) : 0;
+}
+
+// x, g, out: (batch, d, r), r >= 1; pb, pc: (batch, r, r), the Grams B and
+// C; m1, m2: (batch, r, r); ws: repro_fused_retract_workspace floats (null
+// when 0).  Three launches up to kMaxR, 2 ns_iters + 8 above.
 REPRO_API int repro_fused_retract(const float* x, const float* g, float* out,
                                   float* pb, float* pc, float* m1, float* m2,
-                                  int batch, int d, int r, int ns_iters,
-                                  void* stream) {
-  if (r < 1 || r > kMaxR) return (int)cudaErrorInvalidValue;
+                                  float* ws, int batch, int d, int r,
+                                  int ns_iters, void* stream) {
+  if (r < 1 || (r > kMaxR && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = tall::launch_gram<tall::kGramTwo>(x, g, pb, pc, batch, d, r, st);
   if (err != 0) return err;
-  err = launch_finalize(pb, pc, m1, m2, batch, r, ns_iters, st);
+  err = r > kMaxR ? glob::finalize(pb, pc, m1, m2, ws, batch, r, ns_iters, st)
+                  : launch_finalize(pb, pc, m1, m2, batch, r, ns_iters, st);
   if (err != 0) return err;
   return tall::launch_apply<tall::kApplyRetract>(x, g, m1, m2, out, batch, d,
                                                  r, st);

@@ -61,6 +61,8 @@ _EST_BLOCK_Q = 128
 # kernels without a TPU counterpart, counted apart from launch_counts(),
 # whose keys are the JAX package's kernel names (obs/estimates.py KERNELS)
 _BACKWARD_KERNELS = {"flash_attention_bwd": (_fa, "bwd_launches")}
+# launches of one route of a kernel, a part of its launch_counts() entry
+_ROUTES = {"fused_retract_global": (_rt, "global_launches")}
 
 
 def launch_counts() -> dict[str, int]:
@@ -71,13 +73,23 @@ def launch_counts() -> dict[str, int]:
 
 def backward_launch_counts() -> dict[str, int]:
     """Launches of the backward kernels since the last reset: the
-    attention gradient's, two a call (dq, then dk and dv)."""
+    attention gradient's (``flash_attention.backward_launches`` a call:
+    dq, then dk and dv, and on the tensor-core route under GQA the sum of
+    each group's heads)."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _BACKWARD_KERNELS.items()}
 
 
+def route_launch_counts() -> dict[str, int]:
+    """Launches of ``fused_retract``'s global route (r above
+    ``retract.MAX_R``) since the last reset, counted where the kernel
+    launches; they are also in ``launch_counts()["fused_retract"]``."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _ROUTES.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in (*_KERNELS.values(), *_BACKWARD_KERNELS.values()):
+    for mod, attr in (*_KERNELS.values(), *_BACKWARD_KERNELS.values(),
+                      *_ROUTES.values()):
         setattr(mod, attr, 0)
 
 
@@ -170,8 +182,10 @@ def fused_retract(x: Tensor, g: Tensor, *,
     """R_x(P_{T_x}(g)) over the last two dims; leading dims (the node axis)
     are batched.  ``g`` is the AMBIENT update direction: the tangent
     projection happens inside the kernel.  The kernel's Gram identity needs
-    ``x`` on the manifold (x^T x = I); on the card it takes r up to
-    ``retract.MAX_R`` (256)."""
+    ``x`` on the manifold (x^T x = I); on the card it takes any r, as the
+    JAX wrapper does: up to ``retract.MAX_R`` (256) the (r, r) stage runs
+    in a thread block cluster, above it as tensor-core GEMMs over global
+    memory (``retract.cluster_size`` says which)."""
     batch, d, r = _batched("fused_retract", x, g)
     if ns_iters < 0:
         raise ValueError(f"fused_retract: ns_iters={ns_iters} < 0")
@@ -179,10 +193,6 @@ def fused_retract(x: Tensor, g: Tensor, *,
         d, r, ns_iters=ns_iters, lead=batch, itemsize=x.element_size())])
     if not _on_card("fused_retract", x, g):
         return ref.fused_retract_ref(x, g, ns_iters=ns_iters)
-    if r > _rt.MAX_R:
-        raise ValueError(f"fused_retract: the CUDA kernel takes r up to "
-                         f"{_rt.MAX_R} (its (r, r) stage in the shared memory "
-                         f"of a cluster of 8 CTAs), got r={r}")
     out = _rt.launch(x.reshape(batch, d, r).contiguous(),
                      g.reshape(batch, d, r).contiguous(), ns_iters)
     return out.reshape(x.shape)
@@ -436,9 +446,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int | None = None,
                     q_positions: Tensor | None = None,
                     kv_positions: Tensor | None = None,
-                    softmax_scale: float | None = None) -> Tensor:
+                    softmax_scale: float | None = None,
+                    return_lse: bool = False):
     """Attention of q (B, S, H, hd) over k (B, T, Hkv, hd) and v
-    (B, T, Hkv, hdv); returns (B, S, H, hdv) in q's dtype.
+    (B, T, Hkv, hdv); returns (B, S, H, hdv) in q's dtype, and with
+    ``return_lse`` also each query row's log-sum-exp (B, H, S) fp32, which
+    :func:`flash_attention_backward` takes (not differentiable).
 
     Query head h reads kv head ``h // (H // Hkv)``.  Positions (B, S) and
     (B, T) default to aranges; a key is usable when its position is >= 0,
@@ -474,8 +487,9 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if torch._C._are_functorch_transforms_active() or (
             torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return _FlashAttention.apply(*args)
-    return _attention_forward(*args)
+        out, lse = _FlashAttention.apply(*args, return_lse)
+        return (out, lse) if return_lse else out
+    return _attention_forward(*args, with_lse=return_lse)
 
 
 def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
@@ -483,19 +497,24 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                              window: int | None = None,
                              q_positions: Tensor | None = None,
                              kv_positions: Tensor | None = None,
-                             softmax_scale: float | None = None
-                             ) -> tuple[Tensor, Tensor, Tensor]:
+                             softmax_scale: float | None = None,
+                             lse: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv) of ``out = flash_attention(q, k, v, ...)`` for the
     cotangent ``d_out`` (B, S, H, hdv): what the gradient of
     :func:`flash_attention` runs, called directly (not differentiable).
     The CUDA backward kernel on the card (float32 only; head dims up to
-    128), ``ref.attention_backward`` on the CPU."""
-    b, s = q.shape[:2]
+    128), ``ref.attention_backward`` on the CPU.  ``lse`` (B, H, S): the
+    forward's (``flash_attention(..., return_lse=True)``), as the gradient
+    passes it; the plain version reads none."""
+    b, s, h = q.shape[:3]
     t = k.shape[1]
     if out.shape != d_out.shape or out.shape[:3] != q.shape[:3]:
         raise ValueError(f"flash_attention_backward: want out and d_out "
                          f"(B, S, H, hdv) of q's (B, S, H); got "
                          f"{tuple(out.shape)}, {tuple(d_out.shape)}")
+    if lse.shape != (b, h, s):
+        raise ValueError(f"flash_attention_backward: want lse (B, H, S) = "
+                         f"{(b, h, s)}, got {tuple(lse.shape)}")
     if q_positions is None:
         q_positions = torch.arange(s, dtype=torch.int32, device=q.device)
     if kv_positions is None:
@@ -505,7 +524,7 @@ def flash_attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     return _attention_backward(d_out, q, k, v, out, q_positions.expand(b, s),
                                kv_positions.expand(b, t), causal,
                                _window("flash_attention_backward", window),
-                               scale)
+                               scale, lse)
 
 
 def _plain_operands(name: str, *ts: Tensor) -> None:
@@ -516,14 +535,16 @@ def _plain_operands(name: str, *ts: Tensor) -> None:
                            f"dispatch unfolded")
 
 
-def _attention_forward(q, k, v, q_pos, kv_pos, causal, window, scale):
+def _attention_forward(q, k, v, q_pos, kv_pos, causal, window, scale,
+                       with_lse=False):
     """The forward on plain tensors: the CUDA kernel on the card, the plain
-    version on the CPU."""
+    version on the CPU; with ``with_lse`` (out, the rows' log-sum-exp)."""
     _plain_operands("flash_attention", q, k, v, q_pos, kv_pos)
     if not _attn_card("flash_attention", q, (q, k, v), (q_pos, kv_pos)):
-        return ref.blockwise_attention(
-            q, k, v, causal=causal, window=window or None,
-            q_positions=q_pos, kv_positions=kv_pos, softmax_scale=scale)
+        kw = dict(causal=causal, window=window or None, q_positions=q_pos,
+                  kv_positions=kv_pos, softmax_scale=scale)
+        out = ref.blockwise_attention(q, k, v, **kw)
+        return (out, ref.attention_lse(q, k, **kw)) if with_lse else out
     b, s, h, hd = q.shape
     _head_dims("flash_attention", hd, v.shape[-1])
     if min(b, s, h) < 1 or max(b, h) > _MAX_GRID_YZ:
@@ -531,15 +552,16 @@ def _attention_forward(q, k, v, q_pos, kv_pos, causal, window, scale):
                          f"{tuple(q.shape)}")
     return _fa.launch(q.contiguous(), k.contiguous(), v.contiguous(),
                       q_pos.contiguous(), kv_pos.contiguous(), causal=causal,
-                      window=window, scale=scale)
+                      window=window, scale=scale, with_lse=with_lse)
 
 
 def _attention_backward(d_out, q, k, v, out, q_pos, kv_pos, causal, window,
-                        scale):
+                        scale, lse):
     """(dq, dk, dv) on plain tensors: the CUDA backward kernel on the card
-    (float32 only), ``ref.attention_backward`` on the CPU."""
+    (float32 only), ``ref.attention_backward`` on the CPU (which reads no
+    ``lse``)."""
     _plain_operands("flash_attention backward", d_out, q, k, v, out, q_pos,
-                    kv_pos)
+                    kv_pos, lse)
     if not _attn_card("flash_attention backward", q, (q, k, v, out, d_out),
                       (q_pos, kv_pos)):
         return ref.attention_backward(
@@ -557,10 +579,12 @@ def _attention_backward(d_out, q, k, v, out, q_pos, kv_pos, causal, window,
     if min(b, s, h, k.shape[1]) < 1 or max(b, h) > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention backward: unsupported shape "
                          f"{tuple(q.shape)}")
-    return _fa.launch_backward(q.contiguous(), k.contiguous(), v.contiguous(),
-                               out.contiguous(), d_out.contiguous(),
-                               q_pos.contiguous(), kv_pos.contiguous(),
-                               causal=causal, window=window, scale=scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out, d_out = out.contiguous(), d_out.contiguous()
+    q_pos, kv_pos = q_pos.contiguous(), kv_pos.contiguous()
+    return _fa.launch_backward(q, k, v, out, d_out, lse.contiguous(), q_pos,
+                               kv_pos, causal=causal, window=window,
+                               scale=scale)
 
 
 def _fold(x: Tensor, dim: int | None, n: int) -> Tensor:
@@ -574,33 +598,45 @@ def _fold(x: Tensor, dim: int | None, n: int) -> Tensor:
 class _FlashAttention(torch.autograd.Function):
     """flash_attention as an autograd Function that ``torch.func`` accepts:
     ``forward`` without ctx, ``setup_context``, and a ``vmap`` rule that
-    folds the vmapped axis into B, so the kernel sees plain tensors."""
+    folds the vmapped axis into B, so the kernel sees plain tensors.
+    Returns (out, lse): the card's kernel writes lse for the backward; on
+    the CPU, where the plain backward reads none, lse is computed only for
+    ``return_lse`` and is otherwise an unfilled (B, H, S) placeholder."""
 
     @staticmethod
-    def forward(q, k, v, q_pos, kv_pos, causal, window, scale):
-        return _attention_forward(q, k, v, q_pos, kv_pos, causal, window,
-                                  scale)
+    def forward(q, k, v, q_pos, kv_pos, causal, window, scale, return_lse):
+        if return_lse or q.device.type != "cpu":
+            return _attention_forward(q, k, v, q_pos, kv_pos, causal, window,
+                                      scale, with_lse=True)
+        out = _attention_forward(q, k, v, q_pos, kv_pos, causal, window,
+                                 scale)
+        b, s, h = q.shape[:3]
+        return out, q.new_empty((b, h, s), dtype=torch.float32)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, q_pos, kv_pos, causal, window, scale = inputs
-        ctx.save_for_backward(q, k, v, q_pos, kv_pos, output)
+        q, k, v, q_pos, kv_pos, causal, window, scale, _ = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
         ctx.args = (causal, window, scale)
 
     @staticmethod
-    def backward(ctx, d_out):
-        q, k, v, q_pos, kv_pos, out = ctx.saved_tensors
-        dq, dk, dv = _FlashAttentionBackward.apply(d_out, q, k, v, out, q_pos,
-                                                   kv_pos, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+    def backward(ctx, d_out, d_lse):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBackward.apply(d_out, q, k, v, out, lse,
+                                                   q_pos, kv_pos, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, q_pos, kv_pos, causal, window, scale):
+    def vmap(info, in_dims, q, k, v, q_pos, kv_pos, causal, window, scale,
+             return_lse):
         n = info.batch_size
         folded = [_fold(x, d, n)
                   for x, d in zip((q, k, v, q_pos, kv_pos), in_dims[:5])]
-        out = _FlashAttention.apply(*folded, causal, window, scale)
-        return out.unflatten(0, (n, -1)), 0
+        out, lse = _FlashAttention.apply(*folded, causal, window, scale,
+                                         return_lse)
+        return (out.unflatten(0, (n, -1)), lse.unflatten(0, (n, -1))), (0, 0)
 
 
 class _FlashAttentionBackward(torch.autograd.Function):
@@ -609,9 +645,10 @@ class _FlashAttentionBackward(torch.autograd.Function):
     receives batched tensors, which no kernel can take."""
 
     @staticmethod
-    def forward(d_out, q, k, v, out, q_pos, kv_pos, causal, window, scale):
-        return _attention_backward(d_out, q, k, v, out, q_pos, kv_pos, causal,
-                                   window, scale)
+    def forward(d_out, q, k, v, out, lse, q_pos, kv_pos, causal, window,
+                scale):
+        return _attention_backward(d_out, q, k, v, out, q_pos, kv_pos,
+                                   causal, window, scale, lse)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -622,11 +659,11 @@ class _FlashAttentionBackward(torch.autograd.Function):
         raise NotImplementedError("flash_attention has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, d_out, q, k, v, out, q_pos, kv_pos, causal,
+    def vmap(info, in_dims, d_out, q, k, v, out, lse, q_pos, kv_pos, causal,
              window, scale):
         n = info.batch_size
         folded = [_fold(x, d, n) for x, d in
-                  zip((d_out, q, k, v, out, q_pos, kv_pos), in_dims[:7])]
+                  zip((d_out, q, k, v, out, lse, q_pos, kv_pos), in_dims[:8])]
         grads = _FlashAttentionBackward.apply(*folded, causal, window, scale)
         return tuple(g.unflatten(0, (n, -1)) for g in grads), (0, 0, 0)
 

@@ -260,6 +260,29 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
     return out.to(q.dtype)
 
 
+def attention_lse(q: Tensor, k: Tensor, *, causal: bool = True,
+                  window: int | None = None, q_positions=None,
+                  kv_positions=None,
+                  softmax_scale: float | None = None) -> Tensor:
+    """(B, H, S) fp32: each query row's log-sum-exp of its scaled scores
+    over its usable keys, ``m + log(max(l, tiny))``, which the CUDA
+    forward writes beside its output for the backward kernel (a row
+    without keys gets about -1e30 and is never read)."""
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    q_pos, kv_pos = _positions(q, k, q_positions, kv_positions)
+    qg = q.float().reshape(b, s, hkv, h // hkv, hd) * scale
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float())
+    mask = _attn_mask(q_pos, kv_pos, causal, window)[:, None, None]
+    scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None]).masked_fill(~mask, 0.0)
+    lse = m + torch.log(torch.clamp(e.sum(dim=-1),
+                                    min=torch.finfo(torch.float32).tiny))
+    return lse.reshape(b, h, s)
+
+
 def attention_backward(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                        d_out: Tensor, *, causal: bool = True,
                        window: int | None = None, q_positions=None,

@@ -219,7 +219,7 @@ def main() -> int:
                 want = ref.fused_retract_ref(x, g)
                 for v in RETRACT[group][1]:
                     lib = libs[("retract", group, v)]
-                    _rt._lib = lambda lib=lib: _configure_retract(lib)
+                    _rt._lib = lambda lib=lib: _rt.configure(lib)
                     err = float((ops.fused_retract(x, g) - want).abs().max())
                     us = device_us(lambda: ops.fused_retract(x, g),
                                    "finalize")
@@ -257,15 +257,6 @@ def main() -> int:
     print(card)
     print(json.dumps(out), flush=True)
     return 0
-
-
-def _configure_retract(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_fused_retract.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-    lib.repro_fused_retract.restype = ctypes.c_int
-    lib.repro_fused_retract_cluster.argtypes = [i]
-    lib.repro_fused_retract_cluster.restype = ctypes.c_int
-    return lib
 
 
 def _configure_project(lib):

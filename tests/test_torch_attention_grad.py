@@ -184,7 +184,7 @@ def test_dispatch_refuses_torch_func_tensors():
                                               1.0))(x)
     with pytest.raises(RuntimeError, match="unfolded"):
         vmap(lambda t: ops._attention_backward(t, t, t, t, t, pos, pos, True,
-                                               0, 1.0))(x)
+                                               0, 1.0, t[..., 0]))(x)
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inputs_without_grad",

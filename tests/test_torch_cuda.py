@@ -221,6 +221,7 @@ def test_cuda_fused_retract_every_cluster_size(cuda, r, ctas):
     ops.reset_launch_counts()
     got = ops.fused_retract(x, g)
     assert ops.launch_counts()["fused_retract"] == 1
+    assert ops.route_launch_counts() == {"fused_retract_global": 0}
     assert float((got - ref.fused_retract_ref(x, g)).abs().max()) <= 5e-5
     # ns_iters = 0 and a single node take the same stages
     got = ops.fused_retract(x[:1], g[:1], ns_iters=0)
@@ -228,12 +229,30 @@ def test_cuda_fused_retract_every_cluster_size(cuda, r, ctas):
     assert float((got - want).abs().max()) <= 5e-5
 
 
-def test_cuda_fused_retract_refuses_r_above_256(cuda):
+@pytest.mark.parametrize("r", [257, 384, 576])
+@pytest.mark.parametrize("nodes", [1, 8])
+@pytest.mark.parametrize("ns_iters", [0, 20])
+def test_cuda_fused_retract_global_route(cuda, r, nodes, ns_iters):
+    """Above the cluster routes (r > 256) the (r, r) stage runs as
+    tensor-core GEMMs over global memory (``cluster_size`` 0): r = 257 (one
+    past the edge, 4-byte staging), 384, and 576 (smollm-135m's square
+    leaves, d = r), against the plain version (5e-5), one counted launch a
+    call, counted on the global route where it launches, bitwise repeats."""
     from repro_torch.kernels import retract as _rt
-    assert _rt.cluster_size(257) == 0
-    x = torch.zeros(2, 300, 257, device=cuda)
-    with pytest.raises(ValueError, match="up to 256"):
-        ops.fused_retract(x, x)
+    assert _rt.cluster_size(r) == 0
+    gen = torch.Generator(device=cuda).manual_seed(r + nodes)
+    d = r if r == 576 else r + 43
+    x = torch.linalg.qr(torch.randn((nodes, d, r), generator=gen,
+                                    device=cuda))[0]
+    g = 0.5 * x + 0.1 * torch.randn((nodes, d, r), generator=gen,
+                                    device=cuda)
+    ops.reset_launch_counts()
+    got = ops.fused_retract(x, g, ns_iters=ns_iters)
+    assert ops.launch_counts()["fused_retract"] == 1
+    assert ops.route_launch_counts() == {"fused_retract_global": 1}
+    want = ref.fused_retract_ref(x, g, ns_iters=ns_iters)
+    assert float((got - want).abs().max()) <= 5e-5
+    assert torch.equal(ops.fused_retract(x, g, ns_iters=ns_iters), got)
 
 
 def test_cuda_wrappers_raise_on_fp64(cuda):
@@ -658,6 +677,7 @@ BWD_GATE = 1e-5     # relative to the largest |plain| value of dq, dk, dv
     (1, 70, 70, 4, 1, 128, 128, True, None, 0),   # the largest head dims
 ])
 def test_cuda_flash_attention_backward_vs_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as _fa
     b, s, t, h, hkv, hd, hdv, causal, window, empty = case
     gen = torch.Generator(device=cuda).manual_seed(s + t)
     q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
@@ -668,17 +688,64 @@ def test_cuda_flash_attention_backward_vs_plain(cuda, case):
     kpos = torch.where(kpos < empty, -1, kpos).expand(b, t)
     kw = dict(causal=causal, window=window, q_positions=qpos,
               kv_positions=kpos)
-    out = ops.flash_attention(q, k, v, **kw)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     d_out = torch.randn(out.shape, generator=gen, device=cuda)
     ops.reset_launch_counts()
-    got = ops.flash_attention_backward(q, k, v, out, d_out, **kw)
-    assert ops.backward_launch_counts() == {"flash_attention_bwd": 2}
+    got = ops.flash_attention_backward(q, k, v, out, d_out, lse=lse, **kw)
+    route = _fa.backward_route(q, k, v, out, d_out)
+    assert ops.backward_launch_counts() == {
+        "flash_attention_bwd": _fa.backward_launches(route, h, hkv)}
     want = ref.attention_backward(q, k, v, out, d_out, **kw)
     scale = max(float(w.abs().max()) for w in want)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= BWD_GATE * scale
-    again = ops.flash_attention_backward(q, k, v, out, d_out, **kw)
+    again = ops.flash_attention_backward(q, k, v, out, d_out, lse=lse, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 40])
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("window", [None, 24])
+def test_cuda_flash_attention_backward_routes(cuda, hd, group, window):
+    """Both routes of the backward kernel at odd S and T (77 queries, 93
+    keys, the first 5 keys empty): the tensor-core route at head dims 32,
+    64 and 128, the SIMT route at 40; GQA groups 1 and 3; causal, with or
+    without a window of 24.  The forward's lse (``return_lse``) within
+    1e-5 of the plain one where a row has keys; the gradient with that lse
+    handed in (as autograd does: no forward launch) within 1e-5 relative
+    of the plain version, rows and keys without a usable partner exact
+    zeros, bitwise the same on a repeat."""
+    from repro_torch.kernels import flash_attention as _fa
+    b, s, t, hkv = 2, 77, 93, 2
+    h = hkv * group
+    gen = torch.Generator(device=cuda).manual_seed(hd + group)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    k = torch.randn((b, t, hkv, hd), generator=gen, device=cuda)
+    v = torch.randn((b, t, hkv, hd), generator=gen, device=cuda)
+    kpos = torch.arange(t, dtype=torch.int32, device=cuda)
+    kpos = torch.where(kpos < 5, -1, kpos).expand(b, t)
+    kw = dict(causal=True, window=window, kv_positions=kpos)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    want_lse = ref.attention_lse(q, k, **kw)
+    assert float((lse - want_lse)[:, :, 5:].abs().max()) <= \
+        1e-5 * float(want_lse[:, :, 5:].abs().max())
+    d_out = torch.randn(out.shape, generator=gen, device=cuda)
+    assert _fa.backward_route(q, k, v, out, d_out) == (
+        "simt" if hd == 40 else "tensor_core")
+    ops.reset_launch_counts()
+    got = ops.flash_attention_backward(q, k, v, out, d_out, lse=lse, **kw)
+    assert ops.backward_launch_counts() == {"flash_attention_bwd": (
+        3 if hd != 40 and group > 1 else 2)}
+    assert ops.launch_counts()["flash_attention"] == 0
+    want = ref.attention_backward(q, k, v, out, d_out, **kw)
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= BWD_GATE * scale
+    assert bool(torch.all(got[0][:, :5] == 0))
+    assert bool(torch.all(got[1][:, :5] == 0) and torch.all(got[2][:, :5] == 0))
+    again = ops.flash_attention_backward(q, k, v, out, d_out, lse=lse, **kw)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
@@ -699,7 +766,8 @@ def test_cuda_vmapped_grad_runs_the_kernels(cuda):
     ops.reset_launch_counts()
     got = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v, w)
     assert ops.launch_counts()["flash_attention"] == 1
-    assert ops.backward_launch_counts() == {"flash_attention_bwd": 2}
+    # the tensor-core route under GQA 9:3: dq, dk/dv per head, the group sum
+    assert ops.backward_launch_counts() == {"flash_attention_bwd": 3}
     for i in range(3):
         out = ref.blockwise_attention(q[i], k[i], v[i])
         want = ref.attention_backward(q[i], k[i], v[i], out, w[i])
@@ -710,5 +778,6 @@ def test_cuda_vmapped_grad_runs_the_kernels(cuda):
 
 def test_cuda_flash_attention_backward_refuses_bf16(cuda):
     x = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
     with pytest.raises(TypeError, match="float32 only"):
-        ops.flash_attention_backward(x, x, x, x, x)
+        ops.flash_attention_backward(x, x, x, x, x, lse=lse)
