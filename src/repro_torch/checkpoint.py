@@ -5,10 +5,11 @@ Mirrors ``src/repro/checkpoint.py``, file for file:
 order (dict keys sorted; ``tree.tree_flatten_with_path``), a
 ``__paths__`` manifest checked on restore and a ``__dtypes__`` manifest
 (bfloat16 leaves are stored as their raw 16 bits).  So a parameter tree
-written by either package restores in the other.  An optimizer state with
-telemetry does not cross: the port's counter leaf is a host half and a
-device half (``obs/wire.py``), two leaves where the JAX package has one.
-Leaves are stored as they are: the
+written by either package restores in the other, and so does an optimizer
+state, with telemetry too: the port's wire counters (``obs/wire.py``
+``Counters``, a host half and a device half) are saved as the JAX
+package's one packed ``f32[6]`` leaf and split again on restore
+(``obs.wire.from_packed``).  Leaves are stored as they are: the
 port's conv kernels in OIHW, the JAX package's in HWIO
 (``repro_torch.convert`` carries a fair parameter tree between the two).
 
@@ -27,12 +28,19 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.obs.wire import Counters, from_packed, pack
 from repro_torch.tree import tree_flatten_with_path
 
 Tree = Any
 
 
+def _is_counters(node) -> bool:
+    return isinstance(node, Counters)
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Counters):
+        return pack(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -49,7 +57,7 @@ def _dtype_name(leaf, a: np.ndarray) -> str:
 
 def save(directory: str, step: int, tree: Tree) -> str:
     os.makedirs(directory, exist_ok=True)
-    paths, leaves, _ = tree_flatten_with_path(tree)
+    paths, leaves, _ = tree_flatten_with_path(tree, _is_counters)
     arrays, dtypes = {}, []
     for i, leaf in enumerate(leaves):
         a = _to_numpy(leaf)
@@ -78,6 +86,8 @@ def _restore_leaf(a: np.ndarray, dtype: str | None, like, device):
         return t.to(device)
     if dtype is not None and str(a.dtype) != dtype:
         a = a.view(np.dtype(dtype))
+    if isinstance(like, Counters):
+        return from_packed(a, device)
     if isinstance(like, (np.ndarray, np.generic)):
         return a
     if isinstance(like, (bool, int, float)):
@@ -90,7 +100,8 @@ def restore(directory: str, step: int, like: Tree, device="cuda") -> Tree:
     manifest), tensors on ``device``."""
     path = os.path.join(directory, f"step_{step:08d}.npz")
     with np.load(path, allow_pickle=False) as data:
-        want, like_leaves, unflatten = tree_flatten_with_path(like)
+        want, like_leaves, unflatten = tree_flatten_with_path(like,
+                                                              _is_counters)
         have = json.loads(str(data["__paths__"]))
         if want != have:
             raise ValueError(

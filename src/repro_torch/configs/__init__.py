@@ -5,12 +5,20 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (AttnSpec, BlockSpec, ModelConfig,
-                                      Stage, uniform_stages)
+                                      MoESpec, Stage, patterned_stages,
+                                      uniform_stages)
 
-__all__ = ["ARCH_IDS", "AttnSpec", "BlockSpec", "ModelConfig", "Stage",
-           "get_config", "uniform_stages"]
+__all__ = ["ARCH_IDS", "AttnSpec", "BlockSpec", "ModelConfig", "MoESpec",
+           "Stage", "get_config", "patterned_stages", "uniform_stages"]
 
-_PORTED = {"smollm-135m": "repro_torch.configs.smollm_135m"}
+_PORTED = {
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "smollm-135m": "repro_torch.configs.smollm_135m",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+}
 
 #: every architecture of the JAX package's registry, in its order
 ARCH_IDS = ("deepseek-v2-236b", "gemma3-27b", "granite-3-2b", "granite-3-8b",

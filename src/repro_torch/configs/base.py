@@ -1,18 +1,21 @@
-"""Config schema of the port: the dataclasses the dense GQA path reads.
+"""Config schema of the port: the dataclasses the GQA and MoE paths read.
 
 The port's own copy of the JAX package's ``configs/base.py`` (whose
 package ``__init__`` imports JAX), cut to the fields the transformer, the
-paged KV cache, the serving path, the LM objective and the trainer read.
-Field names, defaults and meanings are the reference's.  Not carried
-over: the MoE, SSM and xLSTM block specs, the modality frontend
-(``frontend``, ``n_codebooks``), and the TPU-only fields (``mesh_plan``,
-``use_scan``, ``dtype``); a block kind or attention flavour the port does
-not run yet is refused where it is built (``models/transformer.py``).
+MoE layer, the paged KV cache, the serving path, the LM objective and the
+trainer read.  Field names, defaults and meanings are the reference's.
+Not carried over: the SSM and xLSTM block specs, the modality frontend
+(``frontend``), the TPU-only fields (``mesh_plan``, ``use_scan``,
+``dtype``), and of :class:`MoESpec` the two knobs that only place the
+dispatch on a TPU mesh (``dispatch_spmd_axis``, ``expert_shard_axis``;
+``dispatch_groups`` stays: it sets the capacity per group, so it changes
+the numbers).  A block kind or attention flavour the port does not run yet
+is refused where it is built (``models/transformer.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import Literal, Optional, Sequence
 
 BlockKind = Literal["attn", "moe_attn", "mamba", "mlstm", "slstm"]
 
@@ -26,10 +29,24 @@ class AttnSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int = 8
+    top_k: int = 2
+    d_expert: int = 0                  # expert hidden dim (d_ff of one expert)
+    n_shared: int = 0                  # always-on shared experts (DeepSeek-V2)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # dispatch tokens in G independent groups, capacity per group; -1 =
+    # one group per sequence (the batch dim)
+    dispatch_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSpec:
     kind: BlockKind = "attn"
     attn: Optional[AttnSpec] = None
-    has_mlp: bool = True               # dense SwiGLU MLP after attention
+    moe: Optional[MoESpec] = None      # the routed FFN of a "moe_attn" block
+    has_mlp: bool = True               # dense SwiGLU MLP (ignored for moe)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +69,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    n_codebooks: int = 1               # musicgen: 4 parallel EnCodec streams
     max_seq_len: int = 131072
     # which parameters are manifold-constrained: path-regex over '/'-joined
     # key paths; only matrix (and, for Stiefel, tall or square) matches are
@@ -119,3 +137,16 @@ class ModelConfig:
 
 def uniform_stages(block: BlockSpec, n_layers: int) -> tuple[Stage, ...]:
     return (Stage(blocks=(block,), repeat=n_layers),)
+
+
+def patterned_stages(cell: Sequence[BlockSpec], n_layers: int
+                     ) -> tuple[Stage, ...]:
+    """Repeat a supercell; a trailing partial cell becomes its own stage."""
+    c = len(cell)
+    full, rem = divmod(n_layers, c)
+    stages = []
+    if full:
+        stages.append(Stage(blocks=tuple(cell), repeat=full))
+    if rem:
+        stages.append(Stage(blocks=tuple(cell[:rem]), repeat=1))
+    return tuple(stages)

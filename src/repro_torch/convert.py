@@ -105,7 +105,8 @@ def tree_to_reference(tree):
 
 def transformer_params_from_reference(params: dict, device) -> dict:
     """The JAX transformer's parameters (``models.transformer.init_params``,
-    stacked repeats included) as the port's fp32 tensors, no transpose."""
+    stacked repeats, MoE experts and routers, codebook stacks included) as
+    the port's fp32 tensors, leaf for leaf, no transpose."""
     return tree_from_reference(params, device, np.float32)
 
 
@@ -133,16 +134,19 @@ def lm_batch_to_torch(batch: dict, device) -> dict:
 
 
 def lm_params_from_seed(cfg, seed: int) -> dict:
-    """One node's transformer parameters (dense ``"attn"`` blocks) in the
-    JAX package's layout, as float32 NumPy arrays drawn from
+    """One node's transformer parameters (GQA ``"attn"`` and ``"moe_attn"``
+    blocks, one token stream or ``n_codebooks``) in the JAX package's
+    layout, as float32 NumPy arrays drawn from
     ``numpy.random.default_rng(seed)``, each leaf at its JAX initializer's
-    scale (``src/repro/models/layers.py``): embeddings N(0, 0.02^2), dense
-    weights N(0, 1/d_in), attention projections orthonormal (the Q factor
+    scale (``src/repro/models/layers.py``, ``moe.py``): embeddings
+    N(0, 0.02^2), dense weights and expert weights N(0, 1/d_in), the MoE
+    router N(0, 0.02^2), attention projections orthonormal (the Q factor
     of a Gaussian, transposed for a wide matrix), norm scales ones; stacked
-    repeats on a leading axis.  Not the JAX package's draws (those come
-    from ``jax.random``): both packages take these instead."""
+    repeats on a leading axis, codebooks on a leading (CB, ...) axis.  Not
+    the JAX package's draws (those come from ``jax.random``): both
+    packages take these instead."""
     rng = np.random.default_rng(seed)
-    d, hd, v = cfg.d_model, cfg.hd, cfg.padded_vocab
+    d, hd, v, cb = cfg.d_model, cfg.hd, cfg.padded_vocab, cfg.n_codebooks
 
     def normal(shape, scale):
         return (scale * rng.standard_normal(shape, dtype=np.float32)
@@ -154,8 +158,22 @@ def lm_params_from_seed(cfg, seed: int) -> dict:
         q = np.linalg.qr(a)[0]
         return np.ascontiguousarray(q if tall else q.T, dtype=np.float32)
 
+    def moe(spec):
+        e, f = spec.n_experts, spec.d_expert or cfg.d_ff
+        p = {"router": normal((d, e), 0.02),
+             "w_gate": normal((e, d, f), d ** -0.5),
+             "w_up": normal((e, d, f), d ** -0.5),
+             "w_down": normal((e, f, d), f ** -0.5)}
+        if spec.n_shared:
+            fs = f * spec.n_shared
+            p["shared"] = {"w_gate": normal((d, fs), d ** -0.5),
+                           "w_up": normal((d, fs), d ** -0.5),
+                           "w_down": normal((fs, d), fs ** -0.5)}
+        return p
+
     def block(spec):
-        if spec.kind != "attn" or spec.attn.kind != "gqa":
+        if spec.kind not in ("attn", "moe_attn") or spec.attn.kind != "gqa" \
+                or spec.attn.cross_attn:
             raise NotImplementedError(f"block {spec} is not ported yet")
         p = {"ln1": {"scale": np.ones(d, np.float32)},
              "attn": {"wq": orthogonal(d, cfg.n_heads * hd),
@@ -163,7 +181,9 @@ def lm_params_from_seed(cfg, seed: int) -> dict:
                       "wv": orthogonal(d, cfg.n_kv_heads * hd),
                       "wo": orthogonal(cfg.n_heads * hd, d)},
              "ln2": {"scale": np.ones(d, np.float32)}}
-        if spec.has_mlp and cfg.d_ff > 0:
+        if spec.kind == "moe_attn":
+            p["moe"] = moe(spec.moe)
+        elif spec.has_mlp and cfg.d_ff > 0:
             p["mlp"] = {"w_gate": normal((d, cfg.d_ff), d ** -0.5),
                         "w_up": normal((d, cfg.d_ff), d ** -0.5),
                         "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
@@ -179,9 +199,10 @@ def lm_params_from_seed(cfg, seed: int) -> dict:
                  for _ in range(st.repeat)]
         return cells[0] if st.repeat == 1 else stack(cells)
 
-    p = {"embed": normal((v, d), 0.02),
+    lead = (cb,) if cb > 1 else ()
+    p = {"embed": normal((*lead, v, d), 0.02),
          "stages": {f"s{i}": stage(st) for i, st in enumerate(cfg.stages)},
          "final_norm": {"scale": np.ones(d, np.float32)}}
     if not cfg.tie_embeddings:
-        p["lm_head"] = normal((d, v), d ** -0.5)
+        p["lm_head"] = normal((*lead, d, v), d ** -0.5)
     return p

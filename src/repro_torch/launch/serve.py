@@ -1,13 +1,19 @@
 """Serving launcher of the port (``src/repro/launch/serve.py``): batched
-autoregressive decode of a dense GQA model, by default smollm-135m at its
-published widths with random weights from ``--seed``.
+autoregressive decode of a GQA model (dense, MoE or codebooks), by default
+smollm-135m, at its published widths with random weights from ``--seed``.
 
     python -m repro_torch.launch.serve                  # paged engine, card
     python -m repro_torch.launch.serve --legacy         # contiguous caches
     python -m repro_torch.launch.serve --device cpu --smoke
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+    python -m repro_torch.launch.serve --arch gemma3-27b --legacy
 
-The paged path (``repro_torch.serve``: continuous batching over block-table
-KV pools) is the default; ``--legacy`` picks the contiguous-cache path
+``--arch`` takes smollm-135m, granite-3-2b, granite-3-8b,
+granite-moe-1b-a400m (paged or ``--legacy``), gemma3-27b (sliding windows)
+and musicgen-large (4 codebooks; its prompts are (B, S, 4) and its tokens
+(B, n_new, 4)), the last two with ``--legacy`` only.  The paged path
+(``repro_torch.serve``: continuous batching over block-table KV pools) is
+the default; ``--legacy`` picks the contiguous-cache path
 (:func:`generate`).  Unlike the JAX launcher, a configuration the paged
 path refuses raises instead of falling back.  Runs on the card unless
 ``--device cpu``; TF32 is off (the models are fp32).
@@ -29,13 +35,13 @@ from repro_torch.serve import (ContinuousBatchingScheduler, PagedKVSpec,
 from repro_torch.serve.engine import sample_tokens
 
 
-
 def generate(cfg, params, prompt_tokens: torch.Tensor, n_new: int, *,
              temperature: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """Contiguous-cache decode: prefill (B, S) prompts, then ``n_new - 1``
-    decode steps; returns the (B, n_new) sampled tokens, greedy at
-    temperature 0, else drawn from a generator seeded with ``seed``."""
-    b, s = prompt_tokens.shape
+    """Contiguous-cache decode: prefill (B, S) prompts ((B, S, CB) with
+    codebooks), then ``n_new - 1`` decode steps; returns the (B, n_new)
+    ((B, n_new, CB)) sampled tokens, greedy at temperature 0, else drawn
+    from a generator seeded with ``seed``."""
+    b, s = prompt_tokens.shape[:2]
     dev = prompt_tokens.device
     logits, _, caches = T.forward(params, cfg, prompt_tokens, mode="prefill",
                                   cache_len=s + n_new, last_logits_only=True)
@@ -61,8 +67,9 @@ def paged_spec(batch: int, context: int, page_size: int) -> PagedKVSpec:
 
 def _prompts(cfg, args, dev) -> torch.Tensor:
     gen = torch.Generator().manual_seed(args.seed + 1)
-    return torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                         generator=gen).to(dev)
+    shape = (args.batch, args.prompt_len) + (
+        (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen).to(dev)
 
 
 def _serve_engine(cfg, params, args, dev) -> dict:

@@ -58,7 +58,8 @@ def build_trainer(cfg: ModelConfig, n_nodes: int,
 
     Gossip runs on the stacked backend: a ``mesh`` or a ``mix_backend`` of
     ``"shard_map"`` raises NotImplementedError (the backend over
-    ``torch.distributed`` is ROADMAP queue 1, item 2)."""
+    ``torch.distributed`` is ROADMAP queue 1, item 7).  So do configs
+    with MoE blocks or codebooks (``objectives.lm.check_trainable``)."""
     comm = None
     if spec is not None:
         optimizer, topology = spec.optimizer, spec.topology
@@ -69,7 +70,7 @@ def build_trainer(cfg: ModelConfig, n_nodes: int,
         raise NotImplementedError(
             "the port's trainer mixes on the stacked backend only; a mesh "
             "and the shard_map backend wait for a backend over "
-            "torch.distributed (ROADMAP queue 1, item 2)")
+            "torch.distributed (ROADMAP queue 1, item 7)")
     if kind not in _STACKED_BACKENDS:
         raise ValueError(f"unknown mix backend {kind!r}; known: "
                          f"{_STACKED_BACKENDS + ('shard_map',)}")
@@ -114,7 +115,8 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 def make_serve_step(cfg: ModelConfig):
     """One-token decode against per-layer caches (written in place):
-    ``serve_step(params, token, position, cache) -> (logits, cache)``."""
+    ``serve_step(params, token, position, cache) -> (logits, cache)``;
+    with codebooks, token (B, CB) and logits (B, CB, V)."""
     def serve_step(params, token, position, cache):
         return T.decode_step(params, cfg, token, position, cache)
     return serve_step
@@ -122,7 +124,7 @@ def make_serve_step(cfg: ModelConfig):
 
 def make_prefill_step(cfg: ModelConfig):
     """Full-sequence prefill: ``prefill_step(params, tokens) ->
-    (final-position logits, caches)``."""
+    (final-position logits, caches)``; tokens (B, S) or (B, S, CB)."""
     def prefill_step(params, tokens):
         logits, _, caches = T.forward(params, cfg, tokens, mode="prefill",
                                       last_logits_only=True)

@@ -1,5 +1,8 @@
 """Model assembly of the port (``src/repro/models/transformer.py``): the
-dense ``"attn"`` block (GQA + SwiGLU) in stages of stacked repeats.
+dense ``"attn"`` block (GQA + SwiGLU) and the ``"moe_attn"`` block (GQA +
+the routed experts of ``models/moe.py``) in stages of stacked repeats,
+with one token stream or ``n_codebooks`` parallel ones (MusicGen: the
+codebooks' embeddings summed, one output head each).
 
 Entry points, plain functions over dicts of tensors:
 
@@ -16,8 +19,10 @@ A :class:`Stage` repeats a supercell ``repeat`` times; its parameters and
 caches carry a leading ``repeat`` axis, as the JAX tree does, so that
 ``repro_torch.convert`` is a plain copy.  The repeats run as a Python loop
 over that axis (``lax.scan`` in the JAX package); decode caches are views of
-the stacked tensors and are written in place.  The block kinds
-``moe_attn``, ``mamba``, ``mlstm`` and ``slstm`` are not ported yet.
+the stacked tensors and are written in place.  The MoE router's auxiliary
+loss is summed over blocks and stages, as in the JAX package.  The block
+kinds ``mamba``, ``mlstm`` and ``slstm``, MLA and cross-attention are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig, Stage
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, draw_device, embed_init,
                                        rmsnorm, rmsnorm_init, swiglu,
                                        swiglu_init)
@@ -34,9 +40,9 @@ Tensor = torch.Tensor
 
 
 def _check_block(spec: BlockSpec) -> None:
-    """Refuse what the port does not run yet: other block kinds, MLA and
-    cross-attention."""
-    if spec.kind != "attn":
+    """Refuse what the port does not run yet: the SSM and xLSTM block
+    kinds, MLA and cross-attention."""
+    if spec.kind not in ("attn", "moe_attn"):
         raise NotImplementedError(f"block kind {spec.kind!r} is not ported "
                                   f"yet")
     if spec.attn.kind != "gqa":
@@ -58,7 +64,9 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
          "attn": attn_mod.init_gqa(generator, cfg, spec.attn, dtype),
          "ln2": rmsnorm_init(cfg.d_model, dtype, dev)}
-    if spec.has_mlp and cfg.d_ff > 0:
+    if spec.kind == "moe_attn":
+        p["moe"] = moe_mod.init_moe(generator, cfg, spec.moe, dtype)
+    elif spec.has_mlp and cfg.d_ff > 0:
         p["mlp"] = swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype)
     return p
 
@@ -78,15 +86,20 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32, device=None) -> dict:
     """Parameters drawn with ``generator`` (on its device), then moved to
     ``device`` (default: the generator's); ``meta`` tensors without a
-    generator."""
-    p = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dtype),
+    generator.  With codebooks, ``embed`` is a (CB, V, d) stack and
+    ``lm_head`` a (CB, d, V) stack."""
+    v, d, cb = cfg.padded_vocab, cfg.d_model, cfg.n_codebooks
+
+    def per_codebook(make):
+        return make() if cb == 1 else torch.stack([make() for _ in range(cb)])
+
+    p = {"embed": per_codebook(lambda: embed_init(generator, v, d, dtype)),
          "stages": {f"s{i}": init_stage(generator, cfg, st, dtype)
                     for i, st in enumerate(cfg.stages)},
-         "final_norm": rmsnorm_init(cfg.d_model, dtype,
-                                    draw_device(generator))}
+         "final_norm": rmsnorm_init(d, dtype, draw_device(generator))}
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(generator, cfg.d_model, cfg.padded_vocab,
-                                  dtype=dtype)
+        p["lm_head"] = per_codebook(lambda: dense_init(generator, d, v,
+                                                       dtype=dtype))
     if device is not None:
         p = tree_map(lambda t: t.to(device), p)
     return p
@@ -133,7 +146,8 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_seq_len: int,
 def apply_block(params: dict, cfg: ModelConfig, spec: BlockSpec, x: Tensor,
                 positions, mode: str, cache: dict | None,
                 cache_len: int | None = None):
-    """Returns (x, new_cache)."""
+    """Returns (x, aux, new_cache); aux is the MoE router loss, the Python
+    number 0.0 for a dense block (no device work on the dense path)."""
     _check_block(spec)
     a = spec.attn
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
@@ -147,45 +161,55 @@ def apply_block(params: dict, cfg: ModelConfig, spec: BlockSpec, x: Tensor,
                                         make_cache=(mode == "prefill"),
                                         cache_len=cl)
     x = x + y
-    if "mlp" in params:
+    aux = 0.0
+    if spec.kind == "moe_attn":
+        y2, aux = moe_mod.apply_moe(
+            params["moe"], rmsnorm(params["ln2"], x, cfg.norm_eps), spec.moe)
+        x = x + y2
+    elif "mlp" in params:
         x = x + swiglu(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
-    return x, cache
+    return x, aux, cache
 
 
 def _apply_supercell(cell_params: dict, cfg: ModelConfig, stage: Stage,
                      x: Tensor, positions, mode: str,
                      cell_cache: dict | None, cache_len: int | None):
+    aux_total = 0.0
     new_caches = {}
     for j, sp in enumerate(stage.blocks):
         bc = None if cell_cache is None else cell_cache[f"b{j}"]
-        x, new_caches[f"b{j}"] = apply_block(
+        x, aux, new_caches[f"b{j}"] = apply_block(
             cell_params[f"b{j}"], cfg, sp, x, positions, mode, bc, cache_len)
-    return x, new_caches
+        aux_total = aux_total + aux
+    return x, aux_total, new_caches
 
 
 def apply_stage(stage_params: dict, cfg: ModelConfig, stage: Stage,
                 x: Tensor, positions, mode: str, stage_cache: dict | None,
                 cache_len: int | None = None):
-    """Returns (x, caches | None): prefill stacks the repeats' new caches
-    on the leading axis; decode writes ``stage_cache`` in place."""
+    """Returns (x, aux, caches | None): prefill stacks the repeats' new
+    caches on the leading axis; decode writes ``stage_cache`` in place."""
     want_cache = mode in ("prefill", "decode")
     if stage.repeat == 1:
-        x, nc = _apply_supercell(stage_params, cfg, stage, x, positions,
-                                 mode, stage_cache, cache_len)
-        return x, (nc if want_cache else None)
+        x, aux, nc = _apply_supercell(stage_params, cfg, stage, x, positions,
+                                      mode, stage_cache, cache_len)
+        return x, aux, (nc if want_cache else None)
+    aux_total = 0.0
     new_caches = []
     for i in range(stage.repeat):
         p_i = tree_map(lambda t: t[i], stage_params)
         c_i = None if stage_cache is None else \
             tree_map(lambda t: t[i], stage_cache)
-        x, nc = _apply_supercell(p_i, cfg, stage, x, positions, mode, c_i,
-                                 cache_len)
+        x, aux, nc = _apply_supercell(p_i, cfg, stage, x, positions, mode,
+                                      c_i, cache_len)
+        aux_total = aux_total + aux
         new_caches.append(nc)
     if mode == "decode":
-        return x, stage_cache
+        return x, aux_total, stage_cache
     if want_cache:
-        return x, tree_map(lambda *ts: torch.stack(ts), *new_caches)
-    return x, None
+        return x, aux_total, tree_map(lambda *ts: torch.stack(ts),
+                                      *new_caches)
+    return x, aux_total, None
 
 
 # ---------------------------------------------------------------------------
@@ -194,46 +218,61 @@ def apply_stage(stage_params: dict, cfg: ModelConfig, stage: Stage,
 
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    """tokens (B, S), or (B, S, CB): the sum of the codebooks'
+    embeddings, in codebook order (MusicGen)."""
+    if cfg.n_codebooks > 1:
+        return sum(params["embed"][c][tokens[..., c]]
+                   for c in range(cfg.n_codebooks))
     return params["embed"][tokens]
 
 
 def unembed(params: dict, cfg: ModelConfig, h: Tensor) -> Tensor:
+    """(B, S, d) -> logits (B, S, V), or (B, S, CB, V) with codebooks."""
     if cfg.tie_embeddings:
+        if cfg.n_codebooks > 1:
+            return torch.einsum("bsd,cvd->bscv", h, params["embed"])
         return h @ params["embed"].T
+    if cfg.n_codebooks > 1:
+        return torch.einsum("bsd,cdv->bscv", h, params["lm_head"])
     return h @ params["lm_head"]
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: Tensor, *,
             mode: str = "train", cache_len: int | None = None,
             last_logits_only: bool = False):
-    """tokens: (B, S) integer.  Returns (logits, aux, caches | None); aux is
-    the MoE router loss, 0 for the dense blocks ported so far."""
-    b, s = tokens.shape
+    """tokens: (B, S) integer, or (B, S, CB) with codebooks.  Returns
+    (logits, aux, caches | None); aux is the MoE router loss summed over
+    blocks and stages (0 without MoE blocks)."""
+    b, s = tokens.shape[:2]
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    aux_total = 0.0
     caches = {}
     for i, st in enumerate(cfg.stages):
-        x, nc = apply_stage(params["stages"][f"s{i}"], cfg, st, x, positions,
-                            mode, None, cache_len)
+        x, aux, nc = apply_stage(params["stages"][f"s{i}"], cfg, st, x,
+                                 positions, mode, None, cache_len)
+        aux_total = aux_total + aux
         if nc is not None:
             caches[f"s{i}"] = nc
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if last_logits_only:
         x = x[:, -1:]
     logits = unembed(params, cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, aux, (caches if mode == "prefill" else None)
+    if not torch.is_tensor(aux_total):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total, (caches if mode == "prefill" else None)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: Tensor, position,
                 caches: dict):
-    """token: (B,) integer; position: (B,) int32, or ``(position,
-    block_table)`` for paged pools.  One decode step; the caches are
-    written in place.  Returns (logits (B, V), caches)."""
+    """token: (B,) integer, or (B, CB) with codebooks; position: (B,)
+    int32, or ``(position, block_table)`` for paged pools.  One decode
+    step; the caches are written in place.  Returns (logits (B, V) or
+    (B, CB, V), caches)."""
     x = embed_tokens(params, cfg, token[:, None])
     for i, st in enumerate(cfg.stages):
-        x, _ = apply_stage(params["stages"][f"s{i}"], cfg, st, x, position,
-                           "decode", caches[f"s{i}"])
+        x, _, _ = apply_stage(params["stages"][f"s{i}"], cfg, st, x,
+                              position, "decode", caches[f"s{i}"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, cfg, x)[:, 0], caches

@@ -95,11 +95,24 @@ def lm_y_star(params: dict, batches: dict, cfg: ModelConfig) -> Tensor:
                            + lg.mean(0) / (2.0 * cfg.rho))
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse what the port serves but does not train yet: MoE blocks
+    and codebook streams."""
+    if any(sp.kind == "moe_attn" for st in cfg.stages for sp in st.blocks):
+        raise NotImplementedError(f"{cfg.name}: training MoE blocks is not "
+                                  f"ported yet")
+    if cfg.n_codebooks > 1:
+        raise NotImplementedError(f"{cfg.name}: training codebook streams "
+                                  f"is not ported yet")
+
+
 def make_lm_problem(cfg: ModelConfig, params_template: dict
                     ) -> MinimaxProblem:
     """The group-DRO problem of ``cfg``: the leaves whose '/'-joined path
     matches ``cfg.manifold_policy`` live on ``cfg.manifold`` (shapes from
-    ``params_template``; see ``models.transformer.abstract_params``)."""
+    ``params_template``; see ``models.transformer.abstract_params``).
+    Raises for a config :func:`check_trainable` refuses."""
+    check_trainable(cfg)
     pattern = re.compile(cfg.manifold_policy)
     mmap = manifold_map_from_paths(
         params_template, lambda path: bool(pattern.search(path)),

@@ -31,6 +31,12 @@ does; within one run a field is either always static or always drawn, so
 :func:`pack` adds a zero to every field and the packed vector holds the
 JAX package's f32 sums.  Counts stay exact below 2**24.  The counters are
 cumulative; readers difference consecutive flushes.
+
+A checkpoint holds the packed vector, the JAX package's leaf
+(``repro_torch.checkpoint``).  :func:`from_packed` puts all six terms on
+the host half; a run whose terms are drawn moves its three drawn terms to
+the device half at its first drawn mix (:func:`_drawn_half`), so either
+half then holds what it would have held had the run never stopped.
 """
 from __future__ import annotations
 
@@ -87,6 +93,28 @@ def pack(counters: Counters) -> np.ndarray:
     return out
 
 
+def from_packed(vector, device="cpu") -> Counters:
+    """:class:`Counters` from a packed ``f32[6]`` vector (a checkpoint's
+    leaf, of either package): every term on the host half, the drawn half
+    zero on ``device``."""
+    return Counters(host=np.array(vector, np.float32).reshape(N_COUNTERS),
+                    drawn=torch.zeros((len(_DRAWN_FIELDS),),
+                                      dtype=torch.float32, device=device))
+
+
+def _drawn_half(counters: Counters) -> tuple[np.ndarray, Tensor]:
+    """(host, drawn) for a mix that draws: drawn terms that
+    :func:`from_packed` left on the host move to the device half first
+    (one small copy, once after a restore)."""
+    host, drawn = counters.host, counters.drawn
+    carried = host[list(_DRAWN_FIELDS)]
+    if carried.any():
+        drawn = drawn + torch.from_numpy(carried).to(drawn.device)
+        host = host.copy()
+        host[list(_DRAWN_FIELDS)] = 0.0
+    return host, drawn
+
+
 def unpack(counters) -> WireCounters:
     """:class:`Counters`, or a packed vector (NumPy, tensor or list), as
     the typed host view."""
@@ -121,7 +149,7 @@ def account_mix(counters: Counters, gossip, engine, backend, comm_state,
     sched = float(steps) * n_links
     per_hop = backend.est_hop_bytes(gossip, tree)
     raw = float(steps) * per_hop
-    drawn = counters.drawn
+    host, drawn = counters.host, counters.drawn
 
     if engine is None:
         wire, active, dropped = raw, sched, 0.0
@@ -131,6 +159,7 @@ def account_mix(counters: Counters, gossip, engine, backend, comm_state,
         # consumed, count live-scheduled vs realized pairs, and scale the
         # wire estimate by the realized fraction of the static graph.
         wire, raw = engine.wire_round_bytes(tree, steps)
+        host, drawn = _drawn_half(counters)
         sched_live, act = engine.link_stats(comm_state, slot, rnd)
         sched_live = sched_live * float(steps)
         act = act * float(steps)
@@ -147,6 +176,7 @@ def account_mix(counters: Counters, gossip, engine, backend, comm_state,
             active, dropped = sched, 0.0
         else:
             device = tree_leaves(tree)[0].device
+            host, drawn = _drawn_half(counters)
             k_chan = engine._keys(slot, rnd)[1]
             sched_t = act_t = None
             for h in range(steps):
@@ -162,7 +192,7 @@ def account_mix(counters: Counters, gossip, engine, backend, comm_state,
             wire, active, dropped = 0.0, 0.0, 0.0
 
     # one vector add per mix call (order = WireCounters._fields)
-    host = counters.host + np.array(
+    host = host + np.array(
         [1.0, steps, wire, raw, active, dropped], np.float32)
     return Counters(host=host, drawn=drawn)
 

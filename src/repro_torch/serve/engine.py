@@ -7,6 +7,9 @@ all slots, whatever their number of live requests.  Slot liveness never
 reaches the device: an inactive slot has an all ``-1`` block-table row,
 its K/V write lands on the dump page and its sampled token is ignored on
 the host.  The pools are written in place (the JAX engine donates them).
+A MoE block dispatches the wave's slots, live or empty, as one group of
+``n_slots`` tokens, as the JAX engine's wave does: empty slots take expert
+capacity too.
 
 Prefill runs ``models.transformer.forward(mode="prefill")`` once per
 admitted request, right-padded to whole pages (``ceil(len/page_size)``
@@ -42,11 +45,14 @@ Tensor = torch.Tensor
 
 
 def sample_tokens(logits: Tensor, generator: torch.Generator,
-            temperature: float) -> Tensor:
-    """(B, V) logits -> (B,) int64 tokens."""
+                  temperature: float) -> Tensor:
+    """(..., V) logits -> (...) int64 tokens: (B, V) -> (B,), and with
+    codebooks (B, CB, V) -> (B, CB)."""
     if temperature > 0:
         probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        flat = probs.reshape(-1, probs.shape[-1])
+        return torch.multinomial(flat, 1, generator=generator)[:, 0] \
+            .reshape(probs.shape[:-1])
     return torch.argmax(logits, dim=-1)
 
 

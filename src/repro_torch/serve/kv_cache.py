@@ -85,8 +85,15 @@ class PagePool:
 
 
 def validate_config(cfg: ModelConfig) -> None:
-    """The paged path covers GQA attention blocks without sliding windows
-    or cross-attention; refuse anything else up front."""
+    """The paged path covers GQA attention blocks (dense or MoE) of one
+    token stream, without sliding windows or cross-attention; refuse
+    anything else up front (the contiguous-cache path, ``launch.serve
+    --legacy``, serves windows and codebooks)."""
+    if cfg.n_codebooks > 1:
+        raise ValueError(
+            f"paged serving takes one token stream, got n_codebooks="
+            f"{cfg.n_codebooks}; serve it with the contiguous-cache path "
+            f"(--legacy)")
     for st in cfg.stages:
         for sp in st.blocks:
             if sp.kind not in ("attn", "moe_attn") or sp.attn.kind == "mla":
@@ -95,7 +102,8 @@ def validate_config(cfg: ModelConfig) -> None:
                     f"got kind={sp.kind!r}")
             if sp.attn.sliding_window is not None:
                 raise ValueError(
-                    "paged serving does not support sliding-window layers")
+                    "paged serving does not support sliding-window layers; "
+                    "serve them with the contiguous-cache path (--legacy)")
             if sp.attn.cross_attn:
                 raise ValueError(
                     "paged serving does not support cross-attention layers")

@@ -95,20 +95,22 @@ def _children(tree: Tree):
     return None
 
 
-def tree_flatten_with_path(tree: Tree
+def tree_flatten_with_path(tree: Tree,
+                           is_leaf: Callable[[Any], bool] | None = None
                            ) -> tuple[list[str], list, Callable[[list], Tree]]:
     """``(paths, leaves, unflatten)`` in the JAX package's flatten order:
     dict keys sorted, NamedTuple and dataclass fields in declaration order
     (path part ``.field``), ``None`` an empty subtree; a path joins its
     parts with ``/``, as ``repro.checkpoint`` writes them.  ``unflatten``
-    builds a tree of this structure from such a list of leaves."""
-    node = _children(tree)
+    builds a tree of this structure from such a list of leaves.  A node
+    for which ``is_leaf`` is true is one leaf."""
+    node = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if node is None:
         return [""], [tree], lambda leaves: leaves[0]
     parts, kids, rebuild = node
     paths, leaves, builds, sizes = [], [], [], []
     for part, kid in zip(parts, kids):
-        p, lv, b = tree_flatten_with_path(kid)
+        p, lv, b = tree_flatten_with_path(kid, is_leaf)
         paths += [f"{part}/{q}" if q else part for q in p]
         leaves += lv
         builds.append(b)

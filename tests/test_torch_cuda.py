@@ -494,6 +494,16 @@ ATTN_GATE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (2, 33, 97, 4, 4, 128, 64, False, None),     # hd 128, hdv 64
     (1, 1024, 1024, 2, 1, 64, 64, True, None),   # causal S=T=1024
     (1, 70, 90, 4, 2, 40, 24, True, None),       # not multiples of 16
+    # the served configurations (src/repro_torch/configs)
+    (1, 256, 256, 32, 8, 128, 128, True, None),  # granite-3-8b, GQA 4
+    (1, 256, 256, 32, 8, 64, 64, True, None),    # granite-3-2b, GQA 4
+    (1, 256, 256, 16, 8, 64, 64, True, None),    # granite-moe, GQA 2
+    (4, 32, 32, 32, 32, 64, 64, True, None),     # musicgen, GQA 1
+    (2, 1536, 1536, 32, 16, 128, 128, True, 1024),  # gemma3 local
+    (2, 1, 1552, 32, 16, 128, 128, True, None),  # gemma3 global decode
+    (1, 24, 24, 8, 2, 20, 20, True, None),       # granite-3-8b SMOKE
+    (1, 24, 24, 8, 2, 16, 16, True, None),       # granite-3-2b SMOKE
+    (2, 13, 13, 4, 2, 32, 32, True, 8),          # gemma3 SMOKE
 ])
 def test_cuda_flash_attention_vs_plain(cuda, case, dtype):
     """Both routes of the kernel, chosen by shape: the tensor cores for
@@ -611,6 +621,37 @@ def test_cuda_paged_decode_split_edges(cuda, dtype, window):
     want = ref.paged_decode_attention_ref(q, kp, vp, bt, sl, window=window)
     assert torch.all(got[4] == 0)
     assert float((got.float() - want.float()).abs().max()) <= ATTN_GATE[dtype]
+
+
+@pytest.mark.parametrize("g,hkv,hd", [(4, 8, 64), (4, 8, 128), (2, 8, 64)])
+def test_cuda_paged_decode_at_served_shapes(cuda, g, hkv, hd):
+    """The paged models' decode waves (granite-3-2b, granite-3-8b,
+    granite-moe-1b-a400m: 4 slots, one empty), fp32."""
+    q, kp, vp, bt, seq = _paged_inputs(cuda, torch.float32,
+                                       [288, 37, 0, 161], g, m=18, hkv=hkv,
+                                       hd=hd)
+    got = ops.paged_decode_attention(q, kp, vp, bt, seq)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, seq)
+    assert torch.all(got[2] == 0)
+    assert float((got - want).abs().max()) <= ATTN_GATE[torch.float32]
+
+
+def test_cuda_flash_attention_wrapped_ring_cache(cuda):
+    """gemma3's local-layer decode: one query at position 1551 against a
+    ring of 1024 slots that has wrapped (slot j holds the newest position
+    p = j mod 1024), window 1024, fp32."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, 1, 32, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 1024, 16, 128), generator=gen, device=cuda)
+            for _ in range(2))
+    slots = torch.arange(1024, dtype=torch.int32, device=cuda)
+    kvpos = torch.where(slots + 1024 <= 1551, slots + 1024, slots)
+    kvpos = kvpos.expand(2, 1024).contiguous()
+    qpos = torch.full((2, 1), 1551, dtype=torch.int32, device=cuda)
+    kw = dict(window=1024, q_positions=qpos, kv_positions=kvpos)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.blockwise_attention(q, k, v, **kw)
+    assert float((got - want).abs().max()) <= ATTN_GATE[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

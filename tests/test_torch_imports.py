@@ -35,7 +35,11 @@ for name in names:
 assert {"repro_torch.comms.elastic", "repro_torch.launch.elastic",
         "repro_torch.checkpoint", "repro_torch.launch.roofline",
         "repro_torch.launch.obs", "repro_torch.objectives.lm",
-        "repro_torch.launch.steps", "repro_torch.launch.train"} | {
+        "repro_torch.launch.steps", "repro_torch.launch.train",
+        "repro_torch.models.moe"} | {
+    "repro_torch.configs." + m for m in ("granite_3_2b", "granite_3_8b",
+                                         "gemma3_27b", "musicgen_large",
+                                         "granite_moe_1b_a400m")} | {
     "repro_torch.obs." + m for m in ("events", "trace", "estimates", "wire",
                                      "telemetry")} <= set(names), names
 sys.path.insert(0, sys.argv[1])

@@ -251,7 +251,7 @@ def test_trainer_matches_the_reference(smoke, optimizer):
 
 def test_builders_refuse_what_the_port_does_not_run():
     cfg = configs.get_config("smollm-135m", smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         build_trainer(cfg, 2, mix_backend="shard_map")
     with pytest.raises(NotImplementedError):
         build_trainer(cfg, 2, mesh=object())

@@ -59,10 +59,17 @@ def _prompts(lengths, vocab, seed=0):
 # ---------------------------------------------------------------------------
 
 
+SERVED = ("smollm-135m", "granite-3-2b", "granite-3-8b", "gemma3-27b",
+          "musicgen-large", "granite-moe-1b-a400m")
+NOT_PORTED = ("deepseek-v2-236b", "zamba2-2.7b", "llama-3.2-vision-11b",
+              "xlstm-1.3b")
+
+
+@pytest.mark.parametrize("arch", SERVED)
 @pytest.mark.parametrize("smoke_cfg", [False, True])
-def test_config_copied_value_for_value(smoke_cfg):
-    want = jconfigs.get_config("smollm-135m", smoke=smoke_cfg)
-    got = configs.get_config("smollm-135m", smoke=smoke_cfg)
+def test_config_copied_value_for_value(smoke_cfg, arch):
+    want = jconfigs.get_config(arch, smoke=smoke_cfg)
+    got = configs.get_config(arch, smoke=smoke_cfg)
     for f in dataclasses.fields(got):
         if f.name != "stages":
             assert getattr(got, f.name) == getattr(want, f.name), f.name
@@ -74,12 +81,20 @@ def test_config_copied_value_for_value(smoke_cfg):
             assert (b.kind, b.has_mlp) == (jb.kind, jb.has_mlp)
             assert (b.attn.kind, b.attn.sliding_window, b.attn.cross_attn) \
                 == (jb.attn.kind, jb.attn.sliding_window, jb.attn.cross_attn)
+            if jb.moe is None:
+                assert b.moe is None
+            else:
+                kept = dataclasses.asdict(b.moe)
+                assert {k: v for k, v in dataclasses.asdict(jb.moe).items()
+                        if k in kept} == kept
 
 
 def test_registry_refuses_what_is_not_ported():
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        configs.get_config("gemma3-27b")
+    assert {configs.get_config(a).name for a in SERVED} == set(SERVED)
+    for arch in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            configs.get_config(arch)
     with pytest.raises(ValueError, match="unknown"):
         configs.get_config("gpt-17")
     cfg = configs.get_config("smollm-135m", smoke=True)
