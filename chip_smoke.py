@@ -55,16 +55,23 @@
    gathers through a block table).  In fp32 also at the served
    configurations' shapes (MODEL_ATTENTION, MODEL_PAGED): head dim 128,
    GQA 1, 2 and 4, gemma3's window of 1024 at S = 1536 and against a
-   wrapped ring of 1024 slots, and the SMOKE head dims 16, 20 (SIMT) and
-   32.  Query rows without keys and empty
+   wrapped ring of 1024 slots, the SMOKE head dims 16, 20 (SIMT) and
+   32, deepseek-v2's MLA (q/k head dim 192, v head dim 128, 128 heads:
+   the SIMT route; at SMOKE 48 / 32 on the tensor cores) and
+   llama-vision's cross-attention (not causal, 512 or 1 queries over
+   1600 frontend keys; at SMOKE 13 over 16), each on the route its shape
+   takes.  Query rows without keys and empty
    slots must be exact zeros.
    The attention backward kernel (``flash_attention_bwd``, no TPU
    counterpart; its tensor-core route at hd = 64, handed the forward's lse
    as the gradient hands it) against ``ref.attention_backward`` (1e-5
    relative to the largest plain value) at the trainer's shape (B = 32,
    S = T = 63, GQA 9:3, fp32), at S = T = 512 with window 48, and at
-   S = T = 2048 causal, beside SDPA's backward (``torch.autograd.grad`` of
-   one SDPA call under the same mask), both also read by
+   S = T = 2048 causal, and at MLA's and cross-attention's shapes
+   (BWD_SHAPES: hd 48 / hdv 32 on the tensor cores, 40 / 24 on the SIMT
+   route, causal and not, S != T up to 256 queries over 1600 keys),
+   beside SDPA's backward (``torch.autograd.grad`` of
+   one SDPA call under the same mask), the trainer's shape also read by
    ``torch.profiler`` (the trainer's shape runs at the host's pace under
    CUDA events), bound at the 165 TFLOP/s of fp32
    products on the tensor cores (3xTF32); every case repeats bit for
@@ -171,11 +178,18 @@
    fit an expert's capacity, so no wave drops a token), gemma3-27b (cut
    to 14 layers: 62 do not fit one card; 2 prompts of 1536 tokens, so
    its local layers' ring caches of 1024 wrap) and musicgen-large (4
-   prompts of 32 x 4 codebooks) through ``launch.serve.generate``
-   (flash_attention exactly once a layer for the prefill and for each
-   decode step, every step's logits within 1e-3 of a teacher-forced
-   forward): tokens/s, the median wave or step, TTFT and peak memory.
-   Then every SMOKE config (the six) on the card against the CPU.
+   prompts of 32 x 4 codebooks), deepseek-v2-236b (its dense MLA layer
+   0 and 2 of its 59 MoE layers, 37 GB; 4 prompts of 256 tokens) and
+   llama-3.2-vision-11b (all 40 layers, 39 GB; 2 prompts of 512 tokens,
+   each with 1600 frontend tokens of width 1280 from seed 0) through
+   ``launch.serve.generate`` (flash_attention exactly once a layer, and
+   once more a cross-attention layer, for the prefill and for each
+   decode step; every step's logits within 1e-3 of a teacher-forced
+   forward, for deepseek's MoE the prefill's last position against a
+   forward of the prompts, the same dispatch group, with every decode
+   step's group asserted to fit the experts' capacity): tokens/s, the
+   median wave or step, TTFT and peak memory serving and at init.
+   Then every SMOKE config (the eight) on the card against the CPU.
    This phase runs after the main path's profile and agreement.
 6. LM training (``repro_torch.launch.train``), after serving, as its
    full-width states take half the card: the JAX package's recorded run
@@ -196,7 +210,14 @@
    Stiefel leaf (4: the leaves are stacked over the layers; wq and wo,
    240 matrices of 576 x 576 each, on its global route, counted by the
    wrapper where it launches: ``ops.route_launch_counts()``) and
-   ``stiefel_project`` only for the gradient's tree.
+   ``stiefel_project`` only for the gradient's tree.  Then the other
+   trained configurations: every recorded JAX run of
+   ``tests/data/lm_models_reference.json`` (granite-moe-1b-a400m and
+   musicgen-large at their published widths cut to 2 layers,
+   deepseek-v2-236b and llama-3.2-vision-11b at SMOKE, 4 nodes of 2 x 64
+   tokens, 10 steps) held within its gates with its launches derived,
+   then each on 4 nodes of 4 x 64 tokens: the median step, device busy,
+   launches a step, peak memory, the JAX CLI's success rule.
 7. Prints the kernel table as one JSON line (``launches`` from the path a
    kernel belongs to, the backward kernel's from the LM training path,
    fused_retract's twice: its cluster routes from the fair main path, its
@@ -2019,6 +2040,22 @@ MODEL_ATTENTION = (
     ("granite-3-8b SMOKE 8:2 hd=20", 1, 24, 24, 8, 2, 20, None, False),
     ("gemma3 SMOKE 4:2 hd=32 win 8", 2, 13, 13, 4, 2, 32, 8, False),
     ("musicgen SMOKE 4:4 hd=32", 2, 9, 9, 4, 4, 32, None, False),
+    # MLA (q/k head dim != v head dim; 192 takes the SIMT route) and
+    # cross-attention (not causal, S != T): (..., hdv, causal) appended
+    ("deepseek MLA prefill 128:128 hd=192 hdv=128", 4, 256, 256, 128, 128,
+     192, None, False, 128, True),
+    ("deepseek MLA decode T=272 hd=192 hdv=128", 4, 1, 272, 128, 128, 192,
+     None, False, 128, True),
+    ("llama-vision prefill 32:8 hd=128 S=512", 2, 512, 512, 32, 8, 128,
+     None, False),
+    ("llama-vision cross S=512 T=1600 32:8", 2, 512, 1600, 32, 8, 128, None,
+     False, 128, False),
+    ("llama-vision cross decode S=1 T=1600", 2, 1, 1600, 32, 8, 128, None,
+     False, 128, False),
+    ("deepseek SMOKE MLA hd=48 hdv=32", 2, 13, 13, 4, 4, 48, None, False, 32,
+     True),
+    ("llama-vision SMOKE cross S=13 T=16", 2, 13, 16, 4, 2, 32, None, False,
+     32, False),
 )
 # paged decode waves of the paged models (4 slots, one empty)
 MODEL_PAGED = (("granite-3-2b 32:8 hd=64", (32, 8, 64)),
@@ -2036,10 +2073,11 @@ def _model_attention_cases(gen, gate, device="cuda") -> set:
     from repro_torch.kernels import ops, ref
 
     routes = set()
-    for label, b, s, t, h, hkv, hd, window, ring in MODEL_ATTENTION:
+    for label, b, s, t, h, hkv, hd, window, ring, *rest in MODEL_ATTENTION:
+        hdv, causal = rest or (hd, True)
         q = torch.randn((b, s, h, hd), generator=gen, device=device)
         k = torch.randn((b, t, hkv, hd), generator=gen, device=device)
-        v = torch.randn((b, t, hkv, hd), generator=gen, device=device)
+        v = torch.randn((b, t, hkv, hdv), generator=gen, device=device)
         last = 1536 + 16 - 1 if ring else t - 1
         qpos = torch.arange(last - s + 1, last + 1, dtype=torch.int32,
                             device=device)[None].expand(b, s).contiguous()
@@ -2049,17 +2087,22 @@ def _model_attention_cases(gen, gate, device="cuda") -> set:
         kvpos = kvpos[None].expand(b, t).contiguous()
         route = _fa.route(q, k, v)
         routes.add(route)
-        mask = _attn_mask(qpos, kvpos, True, window)
+        mask = _attn_mask(qpos, kvpos, causal, window)
         if window is not None and not ring and s > window \
                 and bool(mask[:, -1, 0].any()):
             raise AssertionError(f"{label}: no key fell out of the window")
-        kw = dict(causal=True, window=window, q_positions=qpos,
+        want_route = "tensor_core" if (hd % 16 == 0 and hdv % 16 == 0 and
+                                       max(hd, hdv) <= 128) else "simt"
+        if route != want_route:
+            raise AssertionError(f"{label}: {route} route, want {want_route}")
+        kw = dict(causal=causal, window=window, q_positions=qpos,
                   kv_positions=kvpos)
         run_case(
             "flash_attention", [lambda: ops.flash_attention(q, k, v, **kw)],
             [lambda: ref.blockwise_attention(q, k, v, **kw)], absolute(gate),
             [_flash_cost(q, k, v, mask)], f"{label} [{route}]",
-            [_sdpa(q, k, v, mask, window is None and s == t and not ring)],
+            [_sdpa(q, k, v, mask, causal and window is None and s == t
+                   and not ring)],
             peak=PEAK_FLOPS_TF32X3 if route == "tensor_core" else PEAK_FLOPS)
     for label, heads in MODEL_PAGED:
         seq = [288, 37, 0, 161]
@@ -2207,6 +2250,20 @@ TRAIN_STEPS, TRAIN_EVAL_EVERY = 20, 10
 # to 2048 keys and 3 query heads in another order than the plain
 # version's GEMMs
 BWD_GATE = 1e-5     # relative to the largest |plain| value of dq, dk, dv
+# the backward at MLA's and cross-attention's shapes: (label, B, S, T, H,
+# Hkv, hd, hdv, causal, route); the trainer's batch at SMOKE is 4 nodes x
+# 2 sequences of 15 tokens, and llama-vision's SMOKE frontend 16 tokens
+BWD_SHAPES = (
+    ("deepseek SMOKE MLA hd=48 hdv=32", 8, 15, 15, 4, 4, 48, 32, True,
+     "tensor_core"),
+    ("hd=40 hdv=24 S=37 T=45", 2, 37, 45, 4, 2, 40, 24, True, "simt"),
+    ("llama-vision SMOKE cross S=15 T=16", 8, 15, 16, 4, 2, 32, 32, False,
+     "tensor_core"),
+    ("cross S=256 T=1600 32:8 hd=128", 1, 256, 1600, 32, 8, 128, 128, False,
+     "tensor_core"),
+    ("cross hd=40 hdv=24 S=37 T=61", 2, 37, 61, 4, 2, 40, 24, False,
+     "simt"),
+)
 
 
 def _bwd_cost(q, k, v, mask):
@@ -2297,6 +2354,39 @@ def attention_backward_phase(device="cuda") -> dict:
                                  f"differ")
         if label.startswith("trainer"):
             rows["flash_attention_bwd"] = row
+    # the new shapes of MLA and cross-attention: q/k head dim != v head
+    # dim on both routes, and not causal with S != T
+    for label, b, s, t, h, hkv, hd, hdv, causal, want_route in BWD_SHAPES:
+        q = torch.randn((b, s, h, hd), generator=gen, device=device)
+        k = torch.randn((b, t, hkv, hd), generator=gen, device=device)
+        v = torch.randn((b, t, hkv, hdv), generator=gen, device=device)
+        out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                       return_lse=True)
+        d_out = torch.randn(out.shape, generator=gen, device=device)
+        qpos = torch.arange(s, dtype=torch.int32, device=device)[None]
+        kpos = torch.arange(t, dtype=torch.int32, device=device)[None]
+        mask = _attn_mask(qpos, kpos, causal, None).expand(b, s, t)
+        args = (q, k, v, out, d_out)
+        route = _fa.backward_route(*args)
+        if route != want_route:
+            raise AssertionError(f"flash_attention_bwd {label}: {route} "
+                                 f"route, want {want_route}")
+        run_case(
+            "flash_attention_bwd",
+            [lambda: ops.flash_attention_backward(*args, causal=causal,
+                                                  lse=lse)],
+            [lambda: ref.attention_backward(*args, causal=causal)],
+            relative(BWD_GATE), [_bwd_cost(q, k, v, mask)],
+            f"{label} [{route}]",
+            [_sdpa_backward(q, k, v, d_out, None if causal and s == t
+                            else mask[0])],
+            peak=PEAK_FLOPS_TF32X3 if route == "tensor_core" else PEAK_FLOPS,
+            lib_gate=1e-3)
+        first = ops.flash_attention_backward(*args, causal=causal, lse=lse)
+        again = ops.flash_attention_backward(*args, causal=causal, lse=lse)
+        if not all(torch.equal(a, b_) for a, b_ in zip(first, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two calls "
+                                 f"differ")
     log("  flash_attention_bwd: every case repeats bit for bit")
     # kv positions of -1: the first 64 queries have no usable key
     q = torch.randn((2, 256, N_HEADS, HEAD_DIM), generator=gen,
@@ -2329,14 +2419,34 @@ def attention_backward_phase(device="cuda") -> dict:
     return rows
 
 
+def _attention_calls(cfg, frontend: bool = False) -> list:
+    """(hd, hdv, H, Hkv) of every ``flash_attention`` call of one forward
+    of ``cfg``: one per layer (MLA: q/k head dim qk_nope + qk_rope, v head
+    dim v_head_dim, H kv heads: K and V expanded per head), and with a
+    frontend one more per cross-attention layer."""
+    calls = []
+    for st in cfg.stages:
+        for sp in st.blocks * st.repeat:
+            a = sp.attn
+            if a.kind == "mla":
+                calls.append((a.qk_nope_head_dim + a.qk_rope_head_dim,
+                              a.v_head_dim, cfg.n_heads, cfg.n_heads))
+            else:
+                calls.append((cfg.hd, cfg.hd, cfg.n_heads, cfg.n_kv_heads))
+            if a.cross_attn and frontend:
+                calls.append((cfg.hd, cfg.hd, cfg.n_heads, cfg.n_kv_heads))
+    return calls
+
+
 def _train_launches(cfg, steps: int, metric_calls: int,
                     retraction: str = "polar"):
     """The trainer's launches, derived from the code: (per step, in all)
     for ``steps`` DRSGDA steps after the init and ``metric_calls``
     ``convergence_metric`` calls.  A gradient runs the forward kernel once
-    and the backward kernels (``flash_attention.backward_launches``: dq,
-    dk/dv and, on the tensor-core route under GQA, the group sum) per
-    layer and projects
+    per attention call (:func:`_attention_calls`: a layer, and a
+    cross-attention layer once more with its frontend) and the backward
+    kernels (``flash_attention.backward_launches``: dq, dk/dv and, on the
+    tensor-core route under GQA, the group sum) per call, and projects
     the Stiefel tree in one grouped call (``stiefel_project_leaves``: one
     launch per 16 on-chip leaves, two per streaming leaf); a step takes one
     gradient, that projection, and the retraction of each Stiefel leaf:
@@ -2367,13 +2477,16 @@ def _train_launches(cfg, steps: int, metric_calls: int,
         return -(-onchip // 16) + 2 * (len(leaves) - onchip)
 
     tree = project(stiefel)
-    layers = cfg.n_layers
-    # the backward's launches a layer: its tensor-core route (head dims
-    # multiples of 16 up to 128), three under GQA
-    route = "tensor_core" if cfg.hd % 16 == 0 and cfg.hd <= 128 else "simt"
-    bwd = layers * _fa.backward_launches(route, cfg.n_heads, cfg.n_kv_heads)
+    calls = _attention_calls(cfg, cfg.frontend is not None)
+    fwd = len(calls)
+    # the backward's route: tensor cores for head dims that are multiples
+    # of 16 up to 128, three launches under GQA
+    bwd = sum(_fa.backward_launches(
+        "tensor_core" if hd % 16 == 0 and hdv % 16 == 0
+        and max(hd, hdv) <= 128 else "simt", h, hkv)
+        for hd, hdv, h, hkv in calls)
     fused = retraction == "polar_fused"
-    per_step = {"flash_attention": layers, "flash_attention_bwd": bwd,
+    per_step = {"flash_attention": fwd, "flash_attention_bwd": bwd,
                 "stiefel_project": tree + (0 if fused else 2 * sum(
                     project([leaf]) for leaf in stiefel)),
                 "ring_mix": 2 * -(-len(xs) // 16) + 2,
@@ -2381,10 +2494,10 @@ def _train_launches(cfg, steps: int, metric_calls: int,
                 "fused_retract_global": sum(
                     1 for _, r in stiefel if _rt.cluster_size(r) == 0)
                 if fused else 0}
-    init = {"flash_attention": layers, "flash_attention_bwd": bwd,
+    init = {"flash_attention": fwd, "flash_attention_bwd": bwd,
             "stiefel_project": tree, "ring_mix": 0, "fused_retract": 0,
             "fused_retract_global": 0}
-    metric = {"flash_attention": 2 * layers,
+    metric = {"flash_attention": 2 * fwd,
               "flash_attention_bwd": bwd, "stiefel_project": tree,
               "ring_mix": 0, "fused_retract": 0, "fused_retract_global": 0}
     total = {k: steps * per_step[k] + init[k] + metric_calls * metric[k]
@@ -2525,33 +2638,123 @@ def train_phase() -> dict:
     return counts, fused
 
 
+# the other trained configurations: the recorded JAX runs of
+# tests/data/lm_models_reference.json (granite-moe-1b-a400m and
+# musicgen-large at their published widths cut to 2 layers, deepseek-v2-236b
+# and llama-3.2-vision-11b at SMOKE), then each on a 4-node ring of
+# TRAIN_BATCH x TRAIN_SEQ tokens a node
+TRAIN_MODELS_NODES = 4
+
+
+def train_models_phase() -> dict:
+    """Every run of ``tests/data/lm_models_reference.json`` on the card
+    (``launch.train.run_reference``), held point by point within the gates
+    the file records (a point whose gate is null is reported), its
+    launches as :func:`_train_launches` derives them and no call of a
+    plain attention version; then the same configuration on
+    TRAIN_MODELS_NODES nodes of TRAIN_BATCH x TRAIN_SEQ tokens
+    (:func:`_train_step_profile`: the median step, device busy, launches
+    a step, peak memory, the JAX CLI's success rule).  Returns each
+    recorded run's launch counts."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    paths = {}
+    runs = json.loads(train.MODELS_REFERENCE.read_text())["runs"]
+    for arch, reference in runs.items():
+        s = reference["settings"]
+        cfg = train.reference_config(s)
+        per_step, want = _train_launches(cfg, s["steps"],
+                                         len(s["eval_steps"]))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with _PlainAttentionCalls() as plain:
+            res = train.run_reference(reference, "cuda")
+        got = _all_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        comparison = train.compare_to_reference(res, reference)
+        size = "SMOKE" if s.get("smoke") else \
+            f"published widths cut to {s['n_layers']} layers"
+        log(f"  {arch} reference run ({size}, {s['n_nodes']} nodes x "
+            f"{s['batch_per_node']} x {s['seq_len']} tokens, "
+            f"{s['steps']} steps): final loss "
+            f"{res['steps'][-1]['loss']:.6f} (JAX "
+            f"{reference['steps'][-1]['loss']:.6f}), M_t "
+            f"{res['evals'][-1]['M_t']:.6f} (JAX "
+            f"{reference['evals'][-1]['M_t']:.6f}), "
+            f"{res['us_per_step']:.1f} us/step, peak {peak:.2f} GiB; "
+            f"launches {got}")
+        def gaps(q):
+            return " ".join(f"{kind} {q[kind]:.3e}" for kind in
+                            ("gated", "reported") if q[kind] is not None)
+        for curve, per_key in comparison.items():
+            log(f"    {curve}: " + ", ".join(
+                f"{key} {gaps(q)}" for key, q in per_key.items()))
+        if not train.within_reference(comparison):
+            raise AssertionError(f"{arch} reference run outside its gates: "
+                                 f"{comparison}")
+        _check_launches(f"{arch} reference run", got, want)
+        if plain.calls:
+            raise AssertionError(f"{arch}: a plain attention version ran "
+                                 f"{plain.calls} times on the card")
+        paths[f"train {arch}"] = dict(got)
+        gc.collect()
+        torch.cuda.empty_cache()
+        per_step, _ = _train_launches(cfg, 1, 0)
+        _train_step_profile(cfg, per_step, steps=5, nodes=TRAIN_MODELS_NODES,
+                            label=f"{arch} ({size})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def _train_step_profile(cfg, per_step: dict, retraction: str = "polar",
-                        steps: int = 10) -> dict:
-    """(e) The full-width DRSGDA step at the CLI defaults (its hyper with
-    ``retraction``): the median of ``steps`` synchronized steps after 3
-    warm-up steps, the retraction of the Stiefel leaves alone (CUDA
-    events), and one profiled step: device time, busy share, the port's
-    kernels, the top kernels, and its launches against ``per_step``.
-    Returns the profiled step's launches."""
+                        steps: int = 10, nodes: int = TRAIN_NODES,
+                        label: str = "full-width") -> dict:
+    """(e) The DRSGDA step of ``cfg`` on ``nodes`` nodes of TRAIN_BATCH x
+    TRAIN_SEQ tokens at the CLI defaults (its hyper with ``retraction``;
+    a frontend's embeddings as the CLI draws them): the median of
+    ``steps`` synchronized steps after 3 warm-up steps, the retraction of
+    the Stiefel leaves alone (CUDA events), and one profiled step: device
+    time, busy share, the port's kernels, the top kernels, and its
+    launches against ``per_step``; the peak memory of the run; then the
+    JAX CLI's success rule at the last state (a finite loss, Stiefel
+    residual under 1e-2).  Returns the profiled step's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.convert import lm_batch_to_torch
     from repro_torch.core.gda import GDAHyper
+    from repro_torch.core.metric import convergence_metric
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import (TrainSpec, build_trainer,
                                           init_train_state)
+    from repro_torch.launch import frontend_embeds
     from repro_torch.tree import tree_flatten
 
+    torch.cuda.reset_peak_memory_stats()
     # build_trainer's default hyper, with the retraction named
     hyper = GDAHyper(alpha=0.5, beta=0.02, eta=0.05, retraction=retraction)
-    opt, problem = build_trainer(cfg, TRAIN_NODES, TrainSpec(hyper=hyper))
-    stream = TokenStream(TRAIN_NODES, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
-                         n_groups=cfg.n_groups, seed=0)
+    opt, problem = build_trainer(cfg, nodes, TrainSpec(hyper=hyper))
+    stream = TokenStream(nodes, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                         n_groups=cfg.n_groups, n_codebooks=cfg.n_codebooks,
+                         seed=0)
+    fe = frontend_embeds(cfg, (nodes, TRAIN_BATCH), 0, "cuda")
+
+    def to_torch(b):
+        out = lm_batch_to_torch(b, "cuda")
+        if fe is not None:
+            out["frontend_embeds"] = fe
+        return out
+
     state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
-                             cfg, opt, TRAIN_NODES,
-                             lm_batch_to_torch(stream.batch(0), "cuda"))
-    batch = lm_batch_to_torch(stream.batch(1), "cuda")
+                             cfg, opt, nodes, to_torch(stream.batch(0)))
+    batch = to_torch(stream.batch(1))
     for _ in range(3):
         state, _ = opt.step(state, batch)
     walls = []
@@ -2579,16 +2782,26 @@ def _train_step_profile(cfg, per_step: dict, retraction: str = "polar",
     own = own_kernels()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, _ = opt.step(state, batch)
+        state, metrics = opt.step(state, batch)
         torch.cuda.synchronize()
     got = _all_counts()
     if any(got[k] != v for k, v in per_step.items()):
         raise AssertionError(f"LM step launches {got}, want {per_step}")
+    m = convergence_metric(problem, state.x, state.y, batch)
+    loss, resid = float(metrics.loss), float(m["stiefel_residual"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (math.isfinite(loss) and resid < 1e-2):
+        raise AssertionError(f"{cfg.name} step: loss {loss}, Stiefel "
+                             f"residual {resid:.3e}")
     kernels = _device_kernels(prof, 1)
     device_us = sum(k[0] for k in kernels)
     own_us = sum(k[0] for k in kernels if own.search(k[2]))
     bwd_us = sum(k[0] for k in kernels if "attn_bwd" in k[2])
-    log(f"  full-width DRSGDA step, {retraction!r}: {wall_us:.1f} us wall "
+    log(f"  {cfg.name}: {nodes} nodes x {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"after {steps + 4} steps loss {loss:.6f}, M_t "
+        f"{float(m['M_t']):.6f}, Stiefel residual {resid:.3e} (< 1e-2), "
+        f"peak {peak:.2f} GiB")
+    log(f"  {label} DRSGDA step, {retraction!r}: {wall_us:.1f} us wall "
         f"(median of "
         f"{steps} synchronized steps; min {min(walls):.1f}, max "
         f"{max(walls):.1f}); {device_us:.1f} us of device time in "
@@ -2663,14 +2876,15 @@ def _has_moe(cfg) -> bool:
 
 
 def _contiguous_logits(cfg, params, prompt, tokens, device,
-                       page_size=None):
+                       page_size=None, frontend_embeds=None):
     """Per-step logits of the contiguous-cache path (prefill, then the
     serve step of ``launch.steps``) fed ``tokens``: row i predicts
     ``tokens[i]``.  With ``page_size`` the prompt is prefilled right-padded
     with zeros to whole pages, as the paged engine prefills it: an MoE
     block's capacity is per dispatch group, so the same group drops the
     same tokens (the pad rows lie at later positions, masked until the
-    decode overwrites them)."""
+    decode overwrites them).  ``frontend_embeds`` (1, N, embed_dim) feed
+    a model's cross-attention layers."""
     import torch
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import transformer as T
@@ -2679,7 +2893,8 @@ def _contiguous_logits(cfg, params, prompt, tokens, device,
     n = len(prompt)
     padded = list(prompt) + [0] * (-n % page_size if page_size else 0)
     logits, _, caches = T.forward(
-        params, cfg, torch.tensor([padded], device=device), mode="prefill",
+        params, cfg, torch.tensor([padded], device=device),
+        frontend_embeds=frontend_embeds, mode="prefill",
         cache_len=max(len(padded), n + len(tokens)),
         last_logits_only=not page_size)
     out = [logits[0, n - 1 if page_size else -1]]
@@ -2687,7 +2902,7 @@ def _contiguous_logits(cfg, params, prompt, tokens, device,
         lg, caches = serve_step(
             params, torch.tensor([tok], device=device),
             torch.tensor([n + i], dtype=torch.int32, device=device),
-            caches)
+            caches, frontend_embeds=frontend_embeds)
         out.append(lg[0])
     return torch.stack(out).float().cpu()
 
@@ -2848,8 +3063,14 @@ def serve_phase() -> dict:
 # 62 = 6 x 10 + 2 takes).
 SERVED_PAGED = ("granite-3-2b", "granite-3-8b", "granite-moe-1b-a400m")
 SERVED_CONTIGUOUS = {"gemma3-27b": (2, 1536, 16),
-                     "musicgen-large": (4, 32, 32)}
+                     "musicgen-large": (4, 32, 32),
+                     "deepseek-v2-236b": (4, 256, 16),
+                     "llama-3.2-vision-11b": (2, 512, 16)}
 GEMMA3_LAYERS = 14
+# deepseek-v2-236b: its dense MLA layer 0 and the first DEEPSEEK_MOE_LAYERS
+# of its 59 MoE layers (about 15.9 GB each in fp32; 2 so that the stacked
+# repeats' loop runs), about 37 GB of weights with the embedding and head
+DEEPSEEK_MOE_LAYERS = 2
 
 
 def _served_config(arch: str, smoke: bool = False):
@@ -2860,36 +3081,60 @@ def _served_config(arch: str, smoke: bool = False):
             cfg, name=f"{cfg.name} (cut to {GEMMA3_LAYERS} layers)",
             stages=configs.patterned_stages(cfg.stages[0].blocks,
                                             GEMMA3_LAYERS))
+    if arch == "deepseek-v2-236b" and not smoke:
+        first, moe = cfg.stages
+        cfg = dataclasses.replace(
+            cfg, name=f"{cfg.name} (cut to 1 + {DEEPSEEK_MOE_LAYERS} layers)",
+            stages=(first, dataclasses.replace(moe,
+                                               repeat=DEEPSEEK_MOE_LAYERS)))
     return cfg
 
 
 def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
                       n_new: int) -> tuple[dict, dict]:
     """``launch.serve.generate`` (greedy) of ``batch`` seeded prompts of
-    ``prompt_len`` tokens ((B, S, CB) with codebooks), ``n_new`` tokens:
-    first the same prefill and decode steps timed one by one (TTFT, the
-    median step), recording each step's logits; then ``generate`` with the
-    launch counts set to 0 just before it (flash_attention exactly once a
-    layer for the prefill and for each of the n_new - 1 decode steps, no
-    other kernel), its tokens the argmax of the recorded logits wherever
-    the top-2 margin exceeds 1e-3; then every step's logits against a
-    teacher-forced forward of prompt plus tokens (1e-3)."""
+    ``prompt_len`` tokens ((B, S, CB) with codebooks; with a frontend,
+    each with its seeded embeddings), ``n_new`` tokens: first the same
+    prefill and decode steps timed one by one (TTFT, the median step),
+    recording each step's logits; then ``generate`` with the launch counts
+    set to 0 just before it (flash_attention exactly once a layer, and
+    once more a cross-attention layer, for the prefill and for each of
+    the n_new - 1 decode steps, no other kernel), its tokens the argmax of
+    the recorded logits wherever the top-2 margin exceeds 1e-3; then the
+    logits against a teacher-forced forward of prompt plus tokens (1e-3):
+    every step's, or with MoE blocks, whose capacity is per dispatch
+    group, the prefill's last position's against a forward of the prompts
+    alone, the same group (a decode step's group of ``batch`` tokens is
+    asserted to fit every expert's capacity: no decode step drops a
+    token)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.launch import frontend_embeds
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
 
     cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len, *cb))).to("cuda")
+    fe = frontend_embeds(cfg, (batch,), 0, "cuda")
+    has_moe = _has_moe(cfg)
+    if has_moe:
+        for st in cfg.stages:
+            for sp in st.blocks:
+                if sp.kind == "moe_attn" and moe.capacity(
+                        batch, sp.moe) < batch:
+                    raise AssertionError(f"{cfg.name}: a decode step of "
+                                         f"{batch} tokens can drop tokens")
     serve_step = make_serve_step(cfg)
     steps, rows = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, _, caches = T.forward(params, cfg, prompts, mode="prefill",
+    logits, _, caches = T.forward(params, cfg, prompts, frontend_embeds=fe,
+                                  mode="prefill",
                                   cache_len=prompt_len + n_new,
                                   last_logits_only=True)
     tok = logits[:, -1].argmax(-1)
@@ -2899,7 +3144,7 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
         t1 = time.perf_counter()
         pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
                          device="cuda")
-        lg, caches = serve_step(params, tok, pos, caches)
+        lg, caches = serve_step(params, tok, pos, caches, frontend_embeds=fe)
         tok = lg.argmax(-1)
         rows.append(lg.float().cpu())
         steps.append(time.perf_counter() - t1)
@@ -2909,11 +3154,12 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tokens = generate(cfg, params, prompts, n_new)
+    tokens = generate(cfg, params, prompts, n_new, frontend_embeds=fe)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    want = {"flash_attention": cfg.n_layers * n_new, "paged_decode": 0}
+    per_call = len(_attention_calls(cfg, fe is not None))
+    want = {"flash_attention": per_call * n_new, "paged_decode": 0}
     got = {n: counts[n] for n in SERVE_PATH}
     others = {n: c for n, c in counts.items() if n not in SERVE_PATH and c}
     if got != want or others:
@@ -2924,29 +3170,40 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
                 for b in range(batch))
 
     max_err = 0.0
-    for b in range(batch):
-        seq = torch.cat([prompts[b], tokens[b, :-1]])[None]
-        full, _, _ = T.forward(params, cfg, seq)
-        forced = full[0, prompt_len - 1:].float().cpu()
-        max_err = max(max_err, float((forced - loop[b]).abs().max()))
+    if has_moe:
+        full, _, _ = T.forward(params, cfg, prompts, frontend_embeds=fe,
+                               last_logits_only=True)
+        max_err = float((full[:, -1].float().cpu() - loop[:, 0]).abs().max())
         del full
+        compared = "the prefill's last position vs a forward of the prompts"
+    else:
+        for b in range(batch):
+            seq = torch.cat([prompts[b], tokens[b, :-1]])[None]
+            full, _, _ = T.forward(params, cfg, seq, frontend_embeds=None
+                                   if fe is None else fe[b:b + 1])
+            forced = full[0, prompt_len - 1:].float().cpu()
+            max_err = max(max_err, float((forced - loop[b]).abs().max()))
+            del full
+        compared = "teacher-forced forward vs every step's logits"
     if max_err > 1e-3:
-        raise AssertionError(f"generate vs teacher-forced logits differ by "
+        raise AssertionError(f"generate: {compared} differ by "
                              f"{max_err:.3e}")
     stats = {"tokens_per_s": batch * n_new / wall, "waves": n_new - 1,
              "wave_ms": 1e3 * statistics.median(steps),
              "prefill_ms": 1e3 * ttft, "ttft_ms": 1e3 * ttft}
-    codebooks = f" x {cfg.n_codebooks} codebooks" if cb else ""
-    log(f"  generate: {batch} prompts of {prompt_len} tokens{codebooks}, "
+    extra = f" x {cfg.n_codebooks} codebooks" if cb else ""
+    if fe is not None:
+        extra += (f", each with {cfg.frontend.n_tokens} frontend tokens of "
+                  f"width {cfg.frontend.embed_dim}")
+    log(f"  generate: {batch} prompts of {prompt_len} tokens{extra}, "
         f"{n_new} new in {wall:.3f} s ({stats['tokens_per_s']:.1f} "
         f"tokens/s); {n_new - 1} decode steps, median "
         f"{stats['wave_ms']:.2f} ms (min {1e3 * min(steps):.2f}, max "
         f"{1e3 * max(steps):.2f}); TTFT (prefill and first token) "
-        f"{stats['ttft_ms']:.1f} ms; launches {got} (exactly "
-        f"{cfg.n_layers} per prefill and per step); teacher-forced forward "
-        f"vs every step's logits max_abs_err={max_err:.3e} (<= 1e-3); "
-        f"tokens = argmax at every one of the {clear} clear choices (of "
-        f"{tokens.numel()})")
+        f"{stats['ttft_ms']:.1f} ms; launches {got} (exactly {per_call} "
+        f"per prefill and per step); {compared} max_abs_err={max_err:.3e} "
+        f"(<= 1e-3); tokens = argmax at every one of the {clear} clear "
+        f"choices (of {tokens.numel()})")
     return got, stats
 
 
@@ -2966,8 +3223,8 @@ def serve_models_phase() -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         params = _init_model(cfg)
-        # init stacks each stage's per-layer draws: a second copy of the
-        # weights for a moment; serving is read from here on
+        # init draws each stacked repeat into its slice: one repeat above
+        # the weights; serving is read from here on
         init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
         if arch in SERVED_PAGED:
@@ -3070,12 +3327,15 @@ def serve_agreement_phase() -> None:
     same port weights and prompts: the paged ones through the engine (3
     requests x 12 tokens, 2 slots), the contiguous ones through
     ``generate`` (3 prompts of 17 tokens, longer than gemma3's window of
-    8, 12 new); the card's greedy tokens equal the CPU's argmax wherever
-    the CPU's top-2 margin exceeds 1e-3 (teacher-forced on the card's
-    tokens, an MoE prompt prefilled padded to whole pages as the engine
-    prefills it)."""
+    8, 12 new; llama-vision's each with its seeded frontend embeddings);
+    the card's greedy tokens equal the CPU's argmax wherever the CPU's
+    top-2 margin exceeds 1e-3 (teacher-forced on the card's tokens, an MoE
+    prompt prefilled padded to whole pages as the engine prefills it; at
+    SMOKE no dispatch group of deepseek's drops a token, alone or in the
+    batch of 3)."""
     import numpy as np
     import torch
+    from repro_torch.launch import frontend_embeds
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as T
     from repro_torch.serve import (ContinuousBatchingScheduler, PagedKVSpec,
@@ -3088,13 +3348,16 @@ def serve_agreement_phase() -> None:
         p_cpu = T.init_params(torch.Generator().manual_seed(1), cfg)
         rng = np.random.default_rng(1)
         served = {}
+        fe = frontend_embeds(cfg, (3,), 0, "cpu")
         if arch in SERVED_CONTIGUOUS:
             cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
             prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                                     (3, 17, *cb)))
             for dev in ("cuda", "cpu"):
                 params = tree_map(lambda t: t.to(dev), p_cpu)
-                toks = generate(cfg, params, prompts.to(dev), 12).cpu()
+                toks = generate(cfg, params, prompts.to(dev), 12,
+                                frontend_embeds=None if fe is None
+                                else fe.to(dev)).cpu()
                 served[dev] = {tuple(map(tuple, prompts[b].tolist()))
                                if cb else tuple(prompts[b].tolist()):
                                toks[b].tolist() for b in range(3)}
@@ -3114,11 +3377,12 @@ def serve_agreement_phase() -> None:
             page_size = spec.page_size if _has_moe(cfg) else None
             what = "engine"
         clear = same = total = 0
-        for p in plist:
+        for i, p in enumerate(plist):
             key = tuple(map(tuple, p)) if isinstance(p[0], list) \
                 else tuple(p)
             card, cpu = served["cuda"][key], served["cpu"][key]
-            cont = _contiguous_logits(cfg, p_cpu, p, card, "cpu", page_size)
+            cont = _contiguous_logits(cfg, p_cpu, p, card, "cpu", page_size,
+                                      None if fe is None else fe[i:i + 1])
             clear += _check_argmax(cont, card, f"{arch} card vs CPU")
             a, b = np.asarray(card), np.asarray(cpu)
             same += int((a == b).sum())
@@ -3213,6 +3477,8 @@ def main() -> int:
     # last: its full-width states take half the card's memory
     log("LM training:")
     paths["train"], paths["train_polar_fused"] = train_phase()
+    log("LM training, the other configurations:")
+    paths.update(train_models_phase())
 
     # each kernel's launches come from the path it belongs to; every path's
     # counts stand beside them

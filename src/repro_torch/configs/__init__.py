@@ -4,20 +4,23 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (AttnSpec, BlockSpec, ModelConfig,
-                                      MoESpec, Stage, patterned_stages,
-                                      uniform_stages)
+from repro_torch.configs.base import (AttnSpec, BlockSpec, FrontendSpec,
+                                      ModelConfig, MoESpec, Stage,
+                                      patterned_stages, uniform_stages)
 
-__all__ = ["ARCH_IDS", "AttnSpec", "BlockSpec", "ModelConfig", "MoESpec",
-           "Stage", "get_config", "patterned_stages", "uniform_stages"]
+__all__ = ["ARCH_IDS", "AttnSpec", "BlockSpec", "FrontendSpec",
+           "ModelConfig", "MoESpec", "Stage", "get_config",
+           "patterned_stages", "uniform_stages"]
 
 _PORTED = {
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "musicgen-large": "repro_torch.configs.musicgen_large",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
 }
 
 #: every architecture of the JAX package's registry, in its order

@@ -4,13 +4,16 @@ The port's own copy of the JAX package's ``configs/base.py`` (whose
 package ``__init__`` imports JAX), cut to the fields the transformer, the
 MoE layer, the paged KV cache, the serving path, the LM objective and the
 trainer read.  Field names, defaults and meanings are the reference's.
-Not carried over: the SSM and xLSTM block specs, the modality frontend
-(``frontend``), the TPU-only fields (``mesh_plan``, ``use_scan``,
-``dtype``), and of :class:`MoESpec` the two knobs that only place the
-dispatch on a TPU mesh (``dispatch_spmd_axis``, ``expert_shard_axis``;
-``dispatch_groups`` stays: it sets the capacity per group, so it changes
-the numbers).  A block kind or attention flavour the port does not run yet
-is refused where it is built (``models/transformer.py``).
+The stubbed modality
+frontend (:class:`FrontendSpec`, ``ModelConfig.frontend``) is carried
+over: a model with one takes precomputed embeddings, which its
+cross-attention layers read.  Not carried over: the SSM and xLSTM block
+specs, the TPU-only fields (``mesh_plan``, ``use_scan``, ``dtype``), and
+of :class:`MoESpec` the two knobs that only place the dispatch on a TPU
+mesh (``dispatch_spmd_axis``, ``expert_shard_axis``; ``dispatch_groups``
+stays: it sets the capacity per group, so it changes the numbers).  A
+block kind the port does not run yet is refused where it is built
+(``models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,12 @@ class AttnSpec:
     kind: Literal["gqa", "mla"] = "gqa"
     sliding_window: Optional[int] = None      # None => full causal
     cross_attn: bool = False                  # adds a cross-attn sublayer
+    # MLA (DeepSeek-V2) dims, read when kind == "mla"
+    q_lora_rank: int = 0                      # 0 => no q compression
+    kv_lora_rank: int = 512
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +65,15 @@ class Stage:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendSpec:
+    """Stubbed modality frontend: the model takes precomputed embeddings
+    (B, n_tokens, embed_dim), projected to d_model by ``frontend_proj``."""
+    kind: Literal["vision", "audio_cond"] = "vision"
+    n_tokens: int = 576                # image patch tokens / conditioning frames
+    embed_dim: int = 1152              # frontend output dim (projected to d_model)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     family: Literal["dense", "moe", "hybrid", "vlm", "audio", "ssm"] = "dense"
@@ -70,6 +88,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     n_codebooks: int = 1               # musicgen: 4 parallel EnCodec streams
+    frontend: Optional[FrontendSpec] = None
     max_seq_len: int = 131072
     # which parameters are manifold-constrained: path-regex over '/'-joined
     # key paths; only matrix (and, for Stiefel, tall or square) matches are

@@ -4,14 +4,17 @@ The JAX package keeps parameters as dicts of arrays with conv kernels in
 HWIO; the port keeps conv kernels in PyTorch's OIHW.  Node-stacked trees
 carry the node axis first in both.  Everything else (Stiefel leaves, y,
 batches) has the same layout in both packages.  The transformer's nested
-parameter dicts, its KV caches and the serving path's page pools copy leaf
-for leaf (weights ``x @ W`` as (d_in, d_out), stacked repeats on a leading
-axis, in both).  The comms engine's memory
+parameter dicts (MLA's projections, cross-attention's ``wk_x``, ``wv_x``,
+``ln_x`` and the frontend's ``frontend_proj`` among them), its KV caches
+(MLA's compressed ``{c_kv, k_rope, pos}`` too) and the serving path's page
+pools copy leaf for leaf (weights ``x @ W`` as (d_in, d_out), stacked
+repeats on a leading axis, in both).  The comms engine's memory
 (``CommState`` hats, one tree per slot) converts the same way.  Inputs are
 NumPy arrays (or anything ``numpy.asarray`` takes); this module imports no
-JAX.  :func:`lm_params_from_seed` draws a transformer's parameters with
-NumPy alone, so that a JAX run and a run of the port can start from the
-same weights without carrying them in a file.
+JAX.  :func:`lm_params_from_seed` draws a transformer's parameters, and
+:func:`lm_frontend_from_seed` a batch's frontend embeddings, with NumPy
+alone, so that a JAX run and a run of the port can start from the same
+weights and data without carrying them in a file.
 """
 from __future__ import annotations
 
@@ -128,20 +131,26 @@ def batch_to_torch(batch: dict, device) -> dict:
 
 def lm_batch_to_torch(batch: dict, device) -> dict:
     """A ``TokenStream`` batch (tokens, group ids; int32) as int64 tensors,
-    PyTorch's index type."""
-    return {k: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    PyTorch's index type; ``frontend_embeds``, where the batch has them,
+    as float32."""
+    return {k: torch.as_tensor(np.asarray(
+                v, np.float32 if k == "frontend_embeds" else np.int64),
+                device=device)
             for k, v in batch.items()}
 
 
 def lm_params_from_seed(cfg, seed: int) -> dict:
-    """One node's transformer parameters (GQA ``"attn"`` and ``"moe_attn"``
-    blocks, one token stream or ``n_codebooks``) in the JAX package's
-    layout, as float32 NumPy arrays drawn from
+    """One node's transformer parameters (``"attn"`` and ``"moe_attn"``
+    blocks with GQA or MLA attention and cross-attention sublayers, one
+    token stream or ``n_codebooks``, a frontend projection) in the JAX
+    package's layout, as float32 NumPy arrays drawn from
     ``numpy.random.default_rng(seed)``, each leaf at its JAX initializer's
-    scale (``src/repro/models/layers.py``, ``moe.py``): embeddings
-    N(0, 0.02^2), dense weights and expert weights N(0, 1/d_in), the MoE
-    router N(0, 0.02^2), attention projections orthonormal (the Q factor
-    of a Gaussian, transposed for a wide matrix), norm scales ones; stacked
+    scale (``src/repro/models/layers.py``, ``attention.py``, ``moe.py``):
+    embeddings N(0, 0.02^2), dense weights (MLA's down projections and
+    ``frontend_proj`` among them) and expert weights N(0, 1/d_in), the MoE
+    router N(0, 0.02^2), attention projections (MLA's up projections, the
+    cross-attention's ``wk_x``, ``wv_x``) orthonormal (the Q factor of a
+    Gaussian, transposed for a wide matrix), norm scales ones; stacked
     repeats on a leading axis, codebooks on a leading (CB, ...) axis.  Not
     the JAX package's draws (those come from ``jax.random``): both
     packages take these instead."""
@@ -171,16 +180,38 @@ def lm_params_from_seed(cfg, seed: int) -> dict:
                            "w_down": normal((fs, d), fs ** -0.5)}
         return p
 
+    def mla(a):
+        h = cfg.n_heads
+        dn, dr = a.qk_nope_head_dim, a.qk_rope_head_dim
+        p = {}
+        if a.q_lora_rank:
+            p["w_dq"] = normal((d, a.q_lora_rank), d ** -0.5)
+        p["w_dkv"] = normal((d, a.kv_lora_rank + dr), d ** -0.5)
+        p["w_uk"] = orthogonal(a.kv_lora_rank, h * dn)
+        p["w_uv"] = orthogonal(a.kv_lora_rank, h * a.v_head_dim)
+        p["wo"] = orthogonal(h * a.v_head_dim, d)
+        p["w_uq"] = orthogonal(a.q_lora_rank or d, h * (dn + dr))
+        return p
+
+    def gqa(a):
+        p = {"wq": orthogonal(d, cfg.n_heads * hd),
+             "wk": orthogonal(d, cfg.n_kv_heads * hd),
+             "wv": orthogonal(d, cfg.n_kv_heads * hd),
+             "wo": orthogonal(cfg.n_heads * hd, d)}
+        if a.cross_attn:
+            p["wk_x"] = orthogonal(d, cfg.n_kv_heads * hd)
+            p["wv_x"] = orthogonal(d, cfg.n_kv_heads * hd)
+        return p
+
     def block(spec):
-        if spec.kind not in ("attn", "moe_attn") or spec.attn.kind != "gqa" \
-                or spec.attn.cross_attn:
+        if spec.kind not in ("attn", "moe_attn"):
             raise NotImplementedError(f"block {spec} is not ported yet")
         p = {"ln1": {"scale": np.ones(d, np.float32)},
-             "attn": {"wq": orthogonal(d, cfg.n_heads * hd),
-                      "wk": orthogonal(d, cfg.n_kv_heads * hd),
-                      "wv": orthogonal(d, cfg.n_kv_heads * hd),
-                      "wo": orthogonal(cfg.n_heads * hd, d)},
-             "ln2": {"scale": np.ones(d, np.float32)}}
+             "attn": mla(spec.attn) if spec.attn.kind == "mla"
+             else gqa(spec.attn)}
+        if spec.attn.cross_attn:
+            p["ln_x"] = {"scale": np.ones(d, np.float32)}
+        p["ln2"] = {"scale": np.ones(d, np.float32)}
         if spec.kind == "moe_attn":
             p["moe"] = moe(spec.moe)
         elif spec.has_mlp and cfg.d_ff > 0:
@@ -200,9 +231,25 @@ def lm_params_from_seed(cfg, seed: int) -> dict:
         return cells[0] if st.repeat == 1 else stack(cells)
 
     lead = (cb,) if cb > 1 else ()
-    p = {"embed": normal((*lead, v, d), 0.02),
-         "stages": {f"s{i}": stage(st) for i, st in enumerate(cfg.stages)},
-         "final_norm": {"scale": np.ones(d, np.float32)}}
+    p = {"embed": normal((*lead, v, d), 0.02)}
+    if cfg.frontend is not None:
+        e = cfg.frontend.embed_dim
+        p["frontend_proj"] = normal((e, d), e ** -0.5)
+    p["stages"] = {f"s{i}": stage(st) for i, st in enumerate(cfg.stages)}
+    p["final_norm"] = {"scale": np.ones(d, np.float32)}
     if not cfg.tie_embeddings:
         p["lm_head"] = normal((*lead, d, v), d ** -0.5)
     return p
+
+
+def lm_frontend_from_seed(cfg, n_nodes: int, batch_per_node: int,
+                          seed: int) -> np.ndarray:
+    """Node-stacked frontend embeddings (N, B, n_tokens, embed_dim) of
+    ``cfg.frontend``, 0.1 * N(0, 1), float32, drawn from
+    ``numpy.random.default_rng(seed)``: the stub of a vision encoder's
+    output that a recorded run and its replay both take."""
+    fe = cfg.frontend
+    rng = np.random.default_rng(seed)
+    return (0.1 * rng.standard_normal(
+        (n_nodes, batch_per_node, fe.n_tokens, fe.embed_dim),
+        dtype=np.float32)).astype(np.float32)

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.geometry.base import Manifold, register
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import invsqrt_newton_schulz
+from repro_torch.kernels.ref import chunked_sum, invsqrt_newton_schulz
 
 Tensor = torch.Tensor
 
@@ -59,14 +59,31 @@ def invsqrt_spd(a: Tensor, method: Literal["ns", "eigh"] = "ns") -> Tensor:
     return invsqrt_newton_schulz(a)
 
 
+def _gram(a: Tensor) -> Tensor:
+    """a^T a over the last two dims, its reduction over d in chunks above
+    ``ref.LONG_K``."""
+    return chunked_sum(lambda s: torch.einsum("...dr,...ds->...rs",
+                                              a[..., s, :], a[..., s, :]),
+                       a.shape[-2])
+
+
+def _apply(a: Tensor, m: Tensor) -> Tensor:
+    """a @ m for a (..., d, r) and m (..., r, s), its reduction over r in
+    chunks above ``ref.LONG_K``."""
+    return chunked_sum(lambda s: torch.einsum("...dr,...rs->...ds",
+                                              a[..., s], m[..., s, :]),
+                       a.shape[-1])
+
+
 def retract_polar(x: Tensor, u: Tensor,
                   method: Literal["ns", "eigh"] = "ns") -> Tensor:
     """Polar retraction R_x(u) = (x+u)(I + u^T u)^{-1/2} (Lemma 1), valid
-    for u in T_x M."""
+    for u in T_x M.  Reductions above ``ref.LONG_K`` are summed in chunks
+    (``ref.chunked_sum``: on a card, whole fp32 reductions at k = 2048
+    leave the result several times less orthonormal than the CPU's)."""
     r = u.shape[-1]
-    utu = torch.einsum("...dr,...ds->...rs", u, u)
-    a = torch.eye(r, dtype=u.dtype, device=u.device) + utu
-    return torch.einsum("...dr,...rs->...ds", x + u, invsqrt_spd(a, method))
+    a = torch.eye(r, dtype=u.dtype, device=u.device) + _gram(u)
+    return _apply(x + u, invsqrt_spd(a, method))
 
 
 def retract_qr(x: Tensor, u: Tensor) -> Tensor:
@@ -138,9 +155,9 @@ def retract_cayley(x: Tensor, u: Tensor, iters: int = 12,
 
 
 def project_stiefel(a: Tensor, method: Literal["ns", "eigh"] = "ns") -> Tensor:
-    """P_St(a): the polar factor of ``a`` (full column rank), a (a^T a)^{-1/2}."""
-    ata = torch.einsum("...dr,...ds->...rs", a, a)
-    return torch.einsum("...dr,...rs->...ds", a, invsqrt_spd(ata, method))
+    """P_St(a): the polar factor of ``a`` (full column rank), a (a^T a)^{-1/2},
+    its long reductions in chunks as :func:`retract_polar`'s."""
+    return _apply(a, invsqrt_spd(_gram(a), method))
 
 
 def induced_arithmetic_mean(xs: Tensor,

@@ -35,20 +35,45 @@ def stiefel_project_ref(x: Tensor, g: Tensor) -> Tensor:
 # fused polar retraction (tangent project + Gram + NS inverse sqrt + apply)
 # ---------------------------------------------------------------------------
 
+#: a reduction longer than LONG_K is summed in chunks of CHUNK_K: a card's
+#: fp32 GEMM sums a whole reduction in one accumulator, and at k = 2048 the
+#: polar retraction came out 2.2-5.4x less orthonormal on an H100 than on
+#: the CPU, and as orthonormal as the CPU's in chunks of 256
+#: (``launch/retract_accuracy.py``); at 576 the two matched, and up to
+#: LONG_K the products stay whole
+LONG_K, CHUNK_K = 1024, 256
+
+
+def chunked_sum(product, k: int) -> Tensor:
+    """``product(s)`` for the whole reduction (``s`` a slice of its k
+    axis), or, for k above LONG_K, summed over slices of CHUNK_K."""
+    if k <= LONG_K:
+        return product(slice(None))
+    out = product(slice(0, CHUNK_K))
+    for k0 in range(CHUNK_K, k, CHUNK_K):
+        out = out + product(slice(k0, k0 + CHUNK_K))
+    return out
+
+
+def matmul(a: Tensor, b: Tensor) -> Tensor:
+    """a @ b, its reduction in chunks above LONG_K (:func:`chunked_sum`)."""
+    return chunked_sum(lambda s: a[..., s] @ b[..., s, :], a.shape[-1])
+
 
 def invsqrt_newton_schulz(a: Tensor, iters: int = 20) -> Tensor:
     """Inverse square root of SPD ``a`` by the coupled Newton--Schulz
     iteration, after scaling by the induced inf-norm (max abs row sum),
     which bounds the spectrum of the symmetric ``a`` so that it lies in
-    (0, 1].  The iteration of ``geometry/stiefel.py`` in the JAX package."""
+    (0, 1].  The iteration of ``geometry/stiefel.py`` in the JAX package;
+    its products sum a reduction above LONG_K in chunks."""
     r = a.shape[-1]
     eye = torch.eye(r, dtype=a.dtype, device=a.device)
     c = a.abs().sum(-1).amax(-1)[..., None, None] + 1e-6
     y = a / c
     z = eye.expand(a.shape)
     for _ in range(iters):
-        t = 0.5 * (3.0 * eye - z @ y)
-        y, z = y @ t, t @ z
+        t = 0.5 * (3.0 * eye - matmul(z, y))
+        y, z = matmul(y, t), matmul(t, z)
     # z ~ (a/c)^{-1/2}  =>  a^{-1/2} = z / sqrt(c)
     return z * torch.rsqrt(c)
 

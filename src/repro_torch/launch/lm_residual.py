@@ -1,7 +1,9 @@
 """Where the recorded LM run's Stiefel residual comes from on a device.
 
-Runs the JAX package's recorded run (``tests/data/lm_reference.json``,
-through :func:`repro_torch.launch.train.run_reference`) once per variant.
+Runs one of the JAX package's recorded runs (``--arch``: smollm-135m's
+``tests/data/lm_reference.json`` by default, or a run of
+``tests/data/lm_models_reference.json``, through
+:func:`repro_torch.launch.train.run_reference`) once per variant.
 Each variant moves one stage of the Stiefel path to another
 implementation:
 
@@ -23,7 +25,8 @@ fp32, and on the CPU in fp64.  The fp64 reading is the iterates' own
 feasibility; the fp32 readings add the rounding of the residual's product.
 
     python -m repro_torch.launch.lm_residual [--variants card,cpu_retract]
-        [--device cuda] [--out chiprun_out/lm_residual.json]
+        [--arch musicgen-large] [--device cuda]
+        [--out chiprun_out/lm_residual.json]
 """
 from __future__ import annotations
 
@@ -129,12 +132,13 @@ def run_variant(reference: dict, variant: str, device) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    reference = load_reference()
+    reference = load_reference(args.arch)
     want = {e["step"]: e["stiefel_residual"] for e in reference["evals"]}
     runs = []
     for variant in args.variants.split(","):

@@ -58,8 +58,7 @@ def build_trainer(cfg: ModelConfig, n_nodes: int,
 
     Gossip runs on the stacked backend: a ``mesh`` or a ``mix_backend`` of
     ``"shard_map"`` raises NotImplementedError (the backend over
-    ``torch.distributed`` is ROADMAP queue 1, item 7).  So do configs
-    with MoE blocks or codebooks (``objectives.lm.check_trainable``)."""
+    ``torch.distributed`` is ROADMAP queue 1, item 7)."""
     comm = None
     if spec is not None:
         optimizer, topology = spec.optimizer, spec.topology
@@ -98,7 +97,9 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
     """The optimizer's initial state: ``params`` (one node's, e.g. carried
     from the JAX package by ``repro_torch.convert``) or, without them,
     parameters drawn with ``generator`` on its device; projected onto the
-    manifold, broadcast to ``n_nodes`` nodes, y uniform on the simplex."""
+    manifold, broadcast to ``n_nodes`` nodes, y uniform on the simplex.
+    ``batch0`` is a node-stacked batch (``objectives.lm``): tokens, group
+    ids and, for a model with a frontend, ``frontend_embeds``."""
     if params is None:
         params = T.init_params(generator, cfg, dtype)
     params = project_params_to_manifold(params, opt.problem.manifold_map)
@@ -115,18 +116,22 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 def make_serve_step(cfg: ModelConfig):
     """One-token decode against per-layer caches (written in place):
-    ``serve_step(params, token, position, cache) -> (logits, cache)``;
-    with codebooks, token (B, CB) and logits (B, CB, V)."""
-    def serve_step(params, token, position, cache):
-        return T.decode_step(params, cfg, token, position, cache)
+    ``serve_step(params, token, position, cache, frontend_embeds=None) ->
+    (logits, cache)``; with codebooks, token (B, CB) and logits
+    (B, CB, V)."""
+    def serve_step(params, token, position, cache, frontend_embeds=None):
+        return T.decode_step(params, cfg, token, position, cache,
+                             frontend_embeds=frontend_embeds)
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """Full-sequence prefill: ``prefill_step(params, tokens) ->
-    (final-position logits, caches)``; tokens (B, S) or (B, S, CB)."""
-    def prefill_step(params, tokens):
-        logits, _, caches = T.forward(params, cfg, tokens, mode="prefill",
-                                      last_logits_only=True)
+    """Full-sequence prefill: ``prefill_step(params, tokens,
+    frontend_embeds=None) -> (final-position logits, caches)``; tokens
+    (B, S) or (B, S, CB)."""
+    def prefill_step(params, tokens, frontend_embeds=None):
+        logits, _, caches = T.forward(params, cfg, tokens,
+                                      frontend_embeds=frontend_embeds,
+                                      mode="prefill", last_logits_only=True)
         return logits[:, -1], caches
     return prefill_step

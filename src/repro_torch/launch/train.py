@@ -1,25 +1,45 @@
-"""Decentralized LM training: group-DRO smollm-135m under DRSGDA (or DRGDA,
-or a baseline) on a ring of nodes stacked on one card.
+"""Decentralized LM training: group-DRO language models (by default
+smollm-135m) under DRSGDA (or DRGDA, or a baseline) on a ring of nodes
+stacked on one card.
 
 The port's counterpart of ``src/repro/launch/train.py`` (its ``host``
 regime; the TPU meshes of ``--device-grid`` have none), with every flag of
 the JAX CLI and its defaults, plus ``--device`` (default ``cuda``; the
-tests pass ``cpu``).  TF32 is off for matmuls and cuDNN: the reference is
-fp32.  Initial weights are drawn with a ``torch.Generator`` seeded with
-``--seed`` on the device (the JAX CLI draws with ``jax.random``, which the
-port cannot reproduce); the token stream is the JAX package's, byte for
-byte.  Success, as in the JAX CLI: a finite loss and a Stiefel residual
-under 1e-2 at the last evaluation.
+tests pass ``cpu``).  ``--arch`` takes every ported architecture:
+smollm-135m, granite-3-2b, granite-3-8b, gemma3-27b, musicgen-large (4
+codebook streams), granite-moe-1b-a400m and deepseek-v2-236b (MoE),
+llama-3.2-vision-11b (cross-attention onto a stubbed vision frontend).
+TF32 is off for matmuls and cuDNN: the reference is fp32.  Initial weights
+are drawn with a ``torch.Generator`` seeded with ``--seed`` on the device
+(the JAX CLI draws with ``jax.random``, which the port cannot reproduce);
+the token stream is the JAX package's, byte for byte.  A model with a
+frontend gets one set of node-stacked embeddings (nodes, batch per node,
+n_tokens, embed_dim), drawn once from ``--seed``
+(``launch.frontend_embeds``) and fed with every batch, as the JAX CLI
+feeds the same draw to every batch; the JAX CLI seeds its draw with
+``hash((seed, "fe"))``, which Python salts per process for strings, so
+its embeddings differ from run to run and are not copied.  Success, as
+in the JAX CLI: a finite loss and a Stiefel residual under 1e-2 at the
+last evaluation.
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 20
     python -m repro_torch.launch.train --device cpu --smoke --steps 6 \
         --nodes 2 --telemetry --checkpoint-dir /tmp/ckpt --checkpoint-every 3
+    python -m repro_torch.launch.train --arch llama-3.2-vision-11b --smoke
     python -m repro_torch.launch.train --reference [--device cpu]
+    python -m repro_torch.launch.train --reference \
+        --reference-arch granite-moe-1b-a400m
 
-``--reference`` instead runs the JAX package's recorded run
+``--reference`` instead runs one of the JAX package's recorded runs and
+holds every point against it: smollm-135m's
 (``tests/data/lm_reference.json``, written by ``tests/_reference_curves.py
 lm``: full-width smollm-135m cut in depth, from
-``convert.lm_params_from_seed``) and holds every point against it.
+``convert.lm_params_from_seed``), or with ``--reference-arch`` one of
+``tests/data/lm_models_reference.json`` (``tests/_reference_curves.py
+lm_models``: granite-moe-1b-a400m and musicgen-large at their published
+widths cut to 2 layers, deepseek-v2-236b and llama-3.2-vision-11b at
+``SMOKE``, the frontend's embeddings from
+``convert.lm_frontend_from_seed``).
 """
 from __future__ import annotations
 
@@ -35,17 +55,20 @@ import torch
 
 from repro_torch import checkpoint, configs
 from repro_torch.configs.base import uniform_stages
-from repro_torch.convert import (lm_batch_to_torch, lm_params_from_seed,
+from repro_torch.convert import (lm_batch_to_torch, lm_frontend_from_seed,
+                                 lm_params_from_seed,
                                  transformer_params_from_reference)
 from repro_torch.core.gda import GDAHyper
 from repro_torch.core.metric import convergence_metric
 from repro_torch.data.synthetic import TokenStream
-from repro_torch.launch import resolve_device, synchronize
+from repro_torch.launch import frontend_embeds, resolve_device, synchronize
 from repro_torch.launch.steps import TrainSpec, build_trainer, init_train_state
 from repro_torch.obs import Telemetry
 
 REFERENCE = (Path(__file__).resolve().parents[3] / "tests" / "data"
              / "lm_reference.json")
+#: the recorded runs of the other architectures, one per ``runs`` entry
+MODELS_REFERENCE = REFERENCE.with_name("lm_models_reference.json")
 #: the per-step metrics and the evaluations' quantities of a reference run
 STEP_KEYS = ("loss", "grad_norm_x", "consensus_x")
 EVAL_KEYS = ("M_t", "stiefel_residual")
@@ -97,7 +120,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--reference", action="store_true",
                     help="run the JAX package's recorded run and hold it "
                          "against its gates (the other flags but --device "
-                         "are ignored)")
+                         "and --reference-arch are ignored)")
+    ap.add_argument("--reference-arch", default="smollm-135m",
+                    help="with --reference: smollm-135m "
+                         "(lm_reference.json) or a run of "
+                         "lm_models_reference.json")
     return ap
 
 
@@ -107,7 +134,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.reference:
-        ref = load_reference()
+        ref = load_reference(args.reference_arch)
         res = run_reference(ref, dev)
         comparison = compare_to_reference(res, ref)
         ok = within_reference(comparison)
@@ -137,8 +164,18 @@ def main(argv=None) -> int:
 
     stream = TokenStream(n_nodes=args.nodes, batch_per_node=args.batch_per_node,
                          seq_len=args.seq_len, vocab_size=cfg.vocab_size,
-                         n_groups=cfg.n_groups, seed=args.seed)
-    batch0 = lm_batch_to_torch(stream.batch(0), dev)
+                         n_groups=cfg.n_groups, n_codebooks=cfg.n_codebooks,
+                         seed=args.seed)
+    fe = frontend_embeds(cfg, (args.nodes, args.batch_per_node), args.seed,
+                         dev)
+
+    def to_torch(b):
+        out = lm_batch_to_torch(b, dev)
+        if fe is not None:
+            out["frontend_embeds"] = fe
+        return out
+
+    batch0 = to_torch(stream.batch(0))
     with _span(telemetry, "init"):
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         state = init_train_state(gen, cfg, opt, args.nodes, batch0)
@@ -147,7 +184,7 @@ def main(argv=None) -> int:
     t_start = time.time()
     with _span(telemetry, "train", steps=args.steps):
         for t in range(args.steps):
-            batch = lm_batch_to_torch(stream.batch(t + 1), dev)
+            batch = to_torch(stream.batch(t + 1))
             state, metrics = opt.step(state, batch)
             if (t + 1) % args.eval_every == 0 or t == args.steps - 1:
                 with _span(telemetry, "eval", step=t + 1):
@@ -199,19 +236,41 @@ def main(argv=None) -> int:
 # ---------------------------------------------------------------------------
 
 
-def load_reference(path=REFERENCE) -> dict:
-    """The recorded JAX run (``tests/_reference_curves.py lm``)."""
-    return json.loads(Path(path).read_text())
+def load_reference(arch: str = "smollm-135m") -> dict:
+    """A recorded JAX run: smollm-135m's (``tests/_reference_curves.py
+    lm``) or another architecture's (``... lm_models``)."""
+    if arch == "smollm-135m":
+        return json.loads(REFERENCE.read_text())
+    runs = json.loads(MODELS_REFERENCE.read_text())["runs"]
+    if arch not in runs:
+        raise ValueError(f"no recorded run of {arch!r}; recorded: "
+                         f"{sorted(runs)}")
+    return runs[arch]
 
 
 def reference_config(settings: dict):
-    """The recorded run's model: ``settings["arch"]`` at its published
-    widths with ``settings["n_layers"]`` layers."""
+    """The recorded run's model: ``settings["arch"]``'s ``SMOKE`` config
+    where ``settings["smoke"]``, else its published widths with
+    ``settings["n_layers"]`` layers of its first block."""
+    if settings.get("smoke"):
+        return configs.get_config(settings["arch"], smoke=True)
     cfg = configs.get_config(settings["arch"])
     block = cfg.stages[0].blocks[0]
     return dataclasses.replace(
         cfg, stages=uniform_stages(block, settings["n_layers"]),
         name=f"{cfg.name}-{settings['n_layers']}L")
+
+
+def reference_batch(settings: dict, cfg, stream, t: int, device) -> dict:
+    """Batch ``t`` of a recorded run as the port takes it: the stream's
+    tokens and group ids, and for a model with a frontend the embeddings
+    of ``convert.lm_frontend_from_seed`` (the same for every batch)."""
+    b = dict(stream.batch(t))
+    if cfg.frontend is not None:
+        b["frontend_embeds"] = lm_frontend_from_seed(
+            cfg, settings["n_nodes"], settings["batch_per_node"],
+            settings["frontend_seed"])
+    return lm_batch_to_torch(b, device)
 
 
 def run_reference(reference: dict, device="cuda", observe=None) -> dict:
@@ -231,17 +290,18 @@ def run_reference(reference: dict, device="cuda", observe=None) -> dict:
     stream = TokenStream(n_nodes=s["n_nodes"],
                          batch_per_node=s["batch_per_node"],
                          seq_len=s["seq_len"], vocab_size=cfg.vocab_size,
-                         n_groups=cfg.n_groups, seed=s["stream_seed"])
+                         n_groups=cfg.n_groups, n_codebooks=cfg.n_codebooks,
+                         seed=s["stream_seed"])
     params = transformer_params_from_reference(
         lm_params_from_seed(cfg, s["params_seed"]), dev)
     state = init_train_state(None, cfg, opt, s["n_nodes"],
-                             lm_batch_to_torch(stream.batch(0), dev),
+                             reference_batch(s, cfg, stream, 0, dev),
                              params=params)
     if observe is not None:
         observe(problem, 0, state)
     steps, evals, step_s = [], [], []
     for t in range(s["steps"]):
-        batch = lm_batch_to_torch(stream.batch(t + 1), dev)
+        batch = reference_batch(s, cfg, stream, t + 1, dev)
         synchronize(dev)
         t0 = time.perf_counter()
         state, metrics = opt.step(state, batch)

@@ -10,8 +10,11 @@ JAX writes with ``mode="drop"``, the port gives the overflow slot
 afterwards, as the JAX code does with its dump bin; dropped pairs land
 there and add nothing.  Capacity is per dispatch group
 (``MoESpec.dispatch_groups``): the JAX package ``vmap``s the groups, the
-port loops over them.  The expert products are plain GEMMs, outside any
-Pallas kernel in the JAX package too.  The router is Euclidean and its
+port loops over them.  Every write goes to a tensor out of place
+(``scatter_add``, ``index_put``, ``index_add``) and every shape is a
+Python number, so that the trainer's ``torch.func.vmap(grad)`` over the
+nodes batches the dispatch.  The expert products are plain GEMMs, outside
+any Pallas kernel in the JAX package too.  The router is Euclidean and its
 logits are fp32.
 """
 from __future__ import annotations
@@ -91,8 +94,8 @@ def _dispatch_one(params: dict, xf: Tensor, spec: MoESpec) -> tuple[Tensor,
     probs, gate_vals, expert_idx = route(params, xf, spec)
 
     # load-balance auxiliary loss (Switch-style)
-    counts = torch.zeros((t, e), dtype=torch.float32, device=dev)
-    counts.scatter_add_(1, expert_idx, torch.ones_like(gate_vals))
+    counts = torch.zeros((t, e), dtype=torch.float32, device=dev).scatter_add(
+        1, expert_idx, torch.ones_like(gate_vals))
     aux = e * torch.sum(counts.mean(0) * probs.mean(0)) \
         * spec.router_aux_coef
 
@@ -111,10 +114,11 @@ def _dispatch_one(params: dict, xf: Tensor, spec: MoESpec) -> tuple[Tensor,
                        torch.full_like(se, e * cap))              # overflow
 
     # token index per (expert, capacity) slot; e*cap is the dump row
-    token_buf = torch.full((e * cap + 1,), t, dtype=torch.long, device=dev)
-    token_buf[slot] = st_
-    gate_buf = torch.zeros((e * cap + 1,), dtype=torch.float32, device=dev)
-    gate_buf[slot] = torch.where(keep, sg, torch.zeros_like(sg))
+    token_buf = torch.full((e * cap + 1,), t, dtype=torch.long,
+                           device=dev).index_put((slot,), st_)
+    gate_buf = torch.zeros((e * cap + 1,), dtype=torch.float32,
+                           device=dev).index_put(
+        (slot,), torch.where(keep, sg, torch.zeros_like(sg)))
     token_buf = token_buf[:e * cap].reshape(e, cap)
     gate_buf = gate_buf[:e * cap].reshape(e, cap)
 
@@ -125,7 +129,7 @@ def _dispatch_one(params: dict, xf: Tensor, spec: MoESpec) -> tuple[Tensor,
     ye = torch.bmm(h, params["w_down"])                           # (E, C, d)
     ye = ye * gate_buf[..., None].to(ye.dtype)
 
-    y = ye.new_zeros((t + 1, d)).index_add_(
+    y = ye.new_zeros((t + 1, d)).index_add(
         0, token_buf.reshape(-1), ye.reshape(-1, d))[:t]
 
     if "shared" in params:

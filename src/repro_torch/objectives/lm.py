@@ -10,7 +10,13 @@ convergence metric M_t.  The optimizers batch :func:`lm_minimax_loss` over
 the node axis with ``torch.func.vmap``; the attention inside goes through
 ``kernels.ops.flash_attention``, whose ``vmap`` rule folds the node axis
 into the batch.  Tokens and group ids are integer tensors (int64 is
-PyTorch's index type).
+PyTorch's index type); tokens are (B, S), or (B, S, CB) with codebooks,
+whose targets are ``tokens[..., 1:, :]`` (``token_ce`` averages over S and
+CB).  A batch of a model with a frontend also carries
+``frontend_embeds`` (B, n_tokens, embed_dim) float32, which the forward
+reads.  Every architecture the port serves trains: MoE blocks (their
+router's auxiliary loss added to the robust loss), codebooks, MLA and
+cross-attention.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ def _one_hot(idx: Tensor, n: int) -> Tensor:
 
 def token_ce(logits: Tensor, targets: Tensor, impl: str = "gather",
              true_vocab: int = 0) -> Tensor:
-    """Per-sequence mean CE.  logits (B, S, V); targets (B, S) integer.
+    """Per-sequence mean CE.  logits (B, S, V) or (B, S, CB, V); targets
+    (B, S) or (B, S, CB) integer; the mean runs over S (and CB).
 
     ``impl="dot"`` takes the correct-class logit as a one-hot contraction
     over the vocab axis (the JAX package's §Perf knob for a model-sharded
@@ -72,7 +79,9 @@ def group_losses(per_seq_loss: Tensor, group_ids: Tensor,
 
 def _group_losses_of(params: dict, batch: dict, cfg: ModelConfig):
     tokens = batch["tokens"]
-    logits, aux, _ = T.forward(params, cfg, tokens[:, :-1], mode="train")
+    logits, aux, _ = T.forward(params, cfg, tokens[:, :-1],
+                               frontend_embeds=batch.get("frontend_embeds"),
+                               mode="train")
     per_seq = token_ce(logits, tokens[:, 1:], impl=cfg.ce_impl,
                        true_vocab=cfg.vocab_size)
     return group_losses(per_seq, batch["group_ids"], cfg.n_groups), aux
@@ -80,8 +89,8 @@ def _group_losses_of(params: dict, batch: dict, cfg: ModelConfig):
 
 def lm_minimax_loss(params: dict, y: Tensor, batch: dict,
                     cfg: ModelConfig) -> Tensor:
-    """f_i(x, y) of one node: ``batch`` holds its tokens (B, S) and
-    group ids (B,)."""
+    """f_i(x, y) of one node: ``batch`` holds its tokens (B, S) (or
+    (B, S, CB)), group ids (B,) and, with a frontend, its embeddings."""
     lg, aux = _group_losses_of(params, batch, cfg)
     robust = torch.dot(y, lg) - cfg.rho * torch.sum(
         (y - 1.0 / cfg.n_groups) ** 2)
@@ -95,24 +104,11 @@ def lm_y_star(params: dict, batches: dict, cfg: ModelConfig) -> Tensor:
                            + lg.mean(0) / (2.0 * cfg.rho))
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse what the port serves but does not train yet: MoE blocks
-    and codebook streams."""
-    if any(sp.kind == "moe_attn" for st in cfg.stages for sp in st.blocks):
-        raise NotImplementedError(f"{cfg.name}: training MoE blocks is not "
-                                  f"ported yet")
-    if cfg.n_codebooks > 1:
-        raise NotImplementedError(f"{cfg.name}: training codebook streams "
-                                  f"is not ported yet")
-
-
 def make_lm_problem(cfg: ModelConfig, params_template: dict
                     ) -> MinimaxProblem:
     """The group-DRO problem of ``cfg``: the leaves whose '/'-joined path
     matches ``cfg.manifold_policy`` live on ``cfg.manifold`` (shapes from
-    ``params_template``; see ``models.transformer.abstract_params``).
-    Raises for a config :func:`check_trainable` refuses."""
-    check_trainable(cfg)
+    ``params_template``; see ``models.transformer.abstract_params``)."""
     pattern = re.compile(cfg.manifold_policy)
     mmap = manifold_map_from_paths(
         params_template, lambda path: bool(pattern.search(path)),

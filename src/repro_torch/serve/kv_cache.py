@@ -84,29 +84,40 @@ class PagePool:
 # ---------------------------------------------------------------------------
 
 
-def validate_config(cfg: ModelConfig) -> None:
-    """The paged path covers GQA attention blocks (dense or MoE) of one
-    token stream, without sliding windows or cross-attention; refuse
-    anything else up front (the contiguous-cache path, ``launch.serve
-    --legacy``, serves windows and codebooks)."""
+def refusal(cfg: ModelConfig) -> str | None:
+    """Why the paged path does not serve ``cfg``, or None where it does:
+    it covers GQA attention blocks (dense or MoE) of one token stream,
+    without sliding windows or cross-attention (the contiguous-cache path,
+    ``launch.serve --legacy``, serves the rest)."""
     if cfg.n_codebooks > 1:
-        raise ValueError(
-            f"paged serving takes one token stream, got n_codebooks="
-            f"{cfg.n_codebooks}; serve it with the contiguous-cache path "
-            f"(--legacy)")
+        return (f"paged serving takes one token stream, got n_codebooks="
+                f"{cfg.n_codebooks}; serve it with the contiguous-cache path "
+                f"(--legacy)")
     for st in cfg.stages:
         for sp in st.blocks:
             if sp.kind not in ("attn", "moe_attn") or sp.attn.kind == "mla":
-                raise ValueError(
-                    f"paged serving supports GQA attention blocks only, "
-                    f"got kind={sp.kind!r}")
+                kind = sp.kind if sp.kind not in ("attn", "moe_attn") \
+                    else sp.attn.kind
+                return (f"paged serving supports GQA attention blocks only, "
+                        f"got kind={kind!r}; serve it with the "
+                        f"contiguous-cache path (--legacy)")
             if sp.attn.sliding_window is not None:
-                raise ValueError(
-                    "paged serving does not support sliding-window layers; "
-                    "serve them with the contiguous-cache path (--legacy)")
+                return ("paged serving does not support sliding-window "
+                        "layers; serve them with the contiguous-cache path "
+                        "(--legacy)")
             if sp.attn.cross_attn:
-                raise ValueError(
-                    "paged serving does not support cross-attention layers")
+                return ("paged serving does not support cross-attention "
+                        "layers; serve them with the contiguous-cache path "
+                        "(--legacy)")
+    return None
+
+
+def validate_config(cfg: ModelConfig) -> None:
+    """Raise ValueError for a configuration the paged path does not serve
+    (:func:`refusal`), up front."""
+    reason = refusal(cfg)
+    if reason is not None:
+        raise ValueError(reason)
 
 
 def init_pools(cfg: ModelConfig, spec: PagedKVSpec, dtype=torch.float32,

@@ -2,9 +2,9 @@
 on a machine without JAX.
 
     PYTHONPATH=src python tests/_reference_curves.py [fair] [dro] \
-        [robust_pca] [elastic] [lm]
+        [robust_pca] [elastic] [lm] [lm_models]
 
-(all five without arguments; ``<target>_retolerance``, e.g.
+(all six without arguments; ``<target>_retolerance``, e.g.
 ``fair_retolerance``, rewrites that target's gates from its stored spread
 without running JAX, after its CPU gaps are re-measured).  Each target runs the JAX package, then the
 same run ``ENSEMBLE`` times more from perturbed initial weights, and
@@ -71,8 +71,20 @@ and 10 (M_t, stiefel_residual, on the step's batch as the CLI takes
 them), ``spread`` and ``tolerance`` (:data:`LM_CPU_GAP`).  Scalars only:
 the weights are rebuilt from the seed.
 
+``lm_models``: the same trainer and settings as ``lm`` for four more
+architectures, written to ``tests/data/lm_models_reference.json`` under
+``runs``, one entry each with the keys of ``lm``'s file:
+granite-moe-1b-a400m and musicgen-large at their published widths cut to
+2 layers (the weights of ``convert.lm_params_from_seed``),
+deepseek-v2-236b and llama-3.2-vision-11b at ``SMOKE``, the latter's
+frontend embeddings from ``convert.lm_frontend_from_seed`` (the same in
+every batch); gates from :data:`LM_MODELS_CPU_GAP`.  Each run is written
+as soon as it and its ensemble are done; ``lm_models:<arch>`` records one.
+
 ``fair`` takes about 12 minutes on a CPU, ``dro`` about 6, ``robust_pca``
-about 1, ``lm`` about 15 (about 10 GB of memory).  The script imports the
+about 1, ``lm`` about 15 (about 10 GB of memory); ``lm_models`` about
+135 (musicgen-large about 100: the Newton–Schulz products of its 2048 x
+2048 Stiefel leaves; granite-moe-1b-a400m about 30 and 26 GB of memory).  The script imports the
 JAX package and the benchmarks, and of the port only the NumPy
 initializer ``convert.lm_params_from_seed``.
 """
@@ -873,23 +885,27 @@ LM_CPU_GAP = {
 }
 
 
-def lm_config():
-    """The recorded run's model: smollm-135m at its published widths, cut
-    to ``LM_SETTINGS["n_layers"]`` layers."""
+def lm_config(settings: dict = LM_SETTINGS):
+    """A recorded run's model: ``settings["arch"]``'s ``SMOKE`` config
+    where ``settings["smoke"]``, else its published widths cut to
+    ``settings["n_layers"]`` layers of its first block."""
     from repro import configs
     from repro.configs.base import uniform_stages
 
-    cfg = configs.get_config(LM_SETTINGS["arch"])
+    if settings.get("smoke"):
+        return configs.get_config(settings["arch"], smoke=True)
+    cfg = configs.get_config(settings["arch"])
     return dataclasses.replace(
         cfg, stages=uniform_stages(cfg.stages[0].blocks[0],
-                                   LM_SETTINGS["n_layers"]),
-        name=f"{cfg.name}-{LM_SETTINGS['n_layers']}L")
+                                   settings["n_layers"]),
+        name=f"{cfg.name}-{settings['n_layers']}L")
 
 
-def lm_run(cfg, hyper, params) -> dict:
+def lm_run(cfg, hyper, params, s: dict = LM_SETTINGS) -> dict:
     """The JAX trainer from one node's ``params`` (projected onto the
     manifold, broadcast), as ``launch/train.py`` steps it, every step's
-    metrics and M_t at the evaluation steps."""
+    metrics and M_t at the evaluation steps; a model with a frontend gets
+    ``convert.lm_frontend_from_seed``'s embeddings in every batch."""
     import jax
     import jax.numpy as jnp
 
@@ -900,22 +916,32 @@ def lm_run(cfg, hyper, params) -> dict:
     from repro.objectives.lm import init_y
     from repro.sharding.partition import project_params_to_manifold
 
-    s = LM_SETTINGS
     opt, problem = build_trainer(cfg, s["n_nodes"], optimizer=s["optimizer"],
                                  hyper=hyper, topology=s["topology"])
     stream = TokenStream(n_nodes=s["n_nodes"],
                          batch_per_node=s["batch_per_node"],
                          seq_len=s["seq_len"], vocab_size=cfg.vocab_size,
-                         n_groups=cfg.n_groups, seed=s["stream_seed"])
+                         n_groups=cfg.n_groups, n_codebooks=cfg.n_codebooks,
+                         seed=s["stream_seed"])
+    fe = None
+    if cfg.frontend is not None:
+        from repro_torch.convert import lm_frontend_from_seed
+        fe = jnp.asarray(lm_frontend_from_seed(
+            cfg, s["n_nodes"], s["batch_per_node"], s["frontend_seed"]))
 
     def batch(t):
-        return {k: jnp.asarray(v) for k, v in stream.batch(t).items()}
+        b = {k: jnp.asarray(v) for k, v in stream.batch(t).items()}
+        if fe is not None:
+            b["frontend_embeds"] = fe
+        return b
 
     x0 = broadcast_to_nodes(project_params_to_manifold(
         jax.tree.map(jnp.asarray, params), opt.problem.manifold_map),
         s["n_nodes"])
-    state = opt.init(x0, init_y(cfg, s["n_nodes"]), batch(0))
-    step = opt.make_step(donate=False)
+    state = jax.jit(lambda x, y, b: opt.init(x, y, b))(
+        x0, init_y(cfg, s["n_nodes"]), batch(0))
+    # donated, as the JAX CLI steps it: the state's memory is reused
+    step = opt.make_step(donate=True)
     metric = jax.jit(lambda x, y, b: convergence_metric(problem, x, y, b))
     steps, evals = [], []
     for t in range(s["steps"]):
@@ -930,32 +956,37 @@ def lm_run(cfg, hyper, params) -> dict:
     return {"steps": steps, "evals": evals}
 
 
-def lm_tolerance(spread: dict) -> dict:
-    """The gates of both curves: :func:`tolerance` with
-    :data:`LM_CPU_GAP`; the Stiefel residual's (absolute, as :func:`gap`
-    counts it) without ``FLOOR``, which lies above the residual itself
-    (about 1.8e-5): ten times the spread or the port's CPU gap."""
-    out = tolerance(spread, LM_CPU_GAP, residual=False)
+def lm_tolerance(spread: dict, cpu_gap: dict | None = None) -> dict:
+    """The gates of both curves: :func:`tolerance` with ``cpu_gap``
+    (default :data:`LM_CPU_GAP`); the Stiefel residual's (absolute, as
+    :func:`gap` counts it) without ``FLOOR``, which lies above the
+    residual itself (about 1.8e-5): ten times the spread or the port's CPU
+    gap."""
+    cpu_gap = LM_CPU_GAP if cpu_gap is None else cpu_gap
+    out = tolerance(spread, cpu_gap, residual=False)
     out["evals"]["stiefel_residual"] = [
         max(SPREAD_FACTOR * sp, CPU_FACTOR
-            * LM_CPU_GAP["evals"]["stiefel_residual"])
+            * cpu_gap["evals"]["stiefel_residual"])
         for sp in spread["evals"]["stiefel_residual"]]
     return out
 
 
-def lm_main() -> None:
+def lm_record(settings: dict, cpu_gap: dict) -> dict:
+    """One recorded LM run at ``settings`` and its ensemble: ``settings``
+    (with the hyper), ``spread``, ``tolerance`` (from ``cpu_gap``),
+    ``steps`` and ``evals``."""
     import numpy as np
 
     from repro.core.gda import GDAHyper
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.convert import lm_params_from_seed
 
-    cfg = lm_config()
+    cfg = lm_config(settings)
     # build_trainer's default hyper (launch/steps.py), written out
     hyper = GDAHyper(alpha=0.5, beta=0.02, eta=0.05)
-    params = lm_params_from_seed(cfg, LM_SETTINGS["params_seed"])
-    ref = lm_run(cfg, hyper, params)
-    print("lm reference run done", flush=True)
+    params = lm_params_from_seed(cfg, settings["params_seed"])
+    ref = lm_run(cfg, hyper, params, settings)
+    print(f"{settings['arch']} reference run done", flush=True)
     sp = {"steps": {k: [0.0] * len(ref["steps"]) for k in LM_STEP_KEYS},
           "evals": {k: [0.0] * len(ref["evals"]) for k in LM_EVAL_KEYS}}
     for member in range(ENSEMBLE):
@@ -969,18 +1000,79 @@ def lm_main() -> None:
             return {k: walk(v) if isinstance(v, dict) else perturb(v)
                     for k, v in tree.items()}
 
-        got = lm_run(cfg, hyper, walk(params))
+        got = lm_run(cfg, hyper, walk(params), settings)
         for c, keys in (("steps", LM_STEP_KEYS), ("evals", LM_EVAL_KEYS)):
             for key in keys:
                 pts = sp[c][key]
                 for i, (a, b) in enumerate(zip(got[c], ref[c])):
                     pts[i] = max(pts[i], gap(a, b, key))
-        print(f"lm ensemble member {member + 1} of {ENSEMBLE} done",
-              flush=True)
-    LM_OUT.write_text(json.dumps({
-        "settings": {**LM_SETTINGS, "hyper": dataclasses.asdict(hyper)},
-        "spread": sp, "tolerance": lm_tolerance(sp), **ref}, indent=1) + "\n")
+        print(f"{settings['arch']} ensemble member {member + 1} of "
+              f"{ENSEMBLE} done", flush=True)
+    return {"settings": {**settings, "hyper": dataclasses.asdict(hyper)},
+            "spread": sp, "tolerance": lm_tolerance(sp, cpu_gap), **ref}
+
+
+def lm_main() -> None:
+    LM_OUT.write_text(json.dumps(lm_record(LM_SETTINGS, LM_CPU_GAP),
+                                 indent=1) + "\n")
     print(f"wrote {LM_OUT}")
+
+
+LM_MODELS_OUT = ROOT / "tests" / "data" / "lm_models_reference.json"
+#: the recorded runs of ``lm_models``: ``lm``'s settings, with the
+#: architecture, its size (published widths cut to ``n_layers``, or
+#: ``SMOKE``) and the seed of a frontend's embeddings
+LM_MODELS = {
+    arch: {**LM_SETTINGS, "arch": arch, "smoke": smoke,
+           "n_layers": None if smoke else 2, "frontend_seed": 0}
+    for arch, smoke in (("granite-moe-1b-a400m", False),
+                        ("musicgen-large", False),
+                        ("deepseek-v2-236b", True),
+                        ("llama-3.2-vision-11b", True))}
+# The port's largest gap from each recorded run on the CPU over the gated
+# points, as LM_CPU_GAP (`python -m repro_torch.launch.train --reference
+# --reference-arch <arch> --device cpu`; where a quantity has no gated
+# point, over all of them; the Stiefel residual's, absolute, over all).
+LM_MODELS_CPU_GAP = {
+    "granite-moe-1b-a400m": {
+        "steps": {"loss": 2.525e-07, "grad_norm_x": 3.528e-07,
+                  "consensus_x": 5.145e-07},
+        "evals": {"M_t": 8.456e-07, "stiefel_residual": 1.373e-06}},
+    "musicgen-large": {
+        "steps": {"loss": 2.397e-07, "grad_norm_x": 1.924e-07,
+                  "consensus_x": 3.688e-07},
+        "evals": {"M_t": 1.856e-07, "stiefel_residual": 3.248e-06}},
+    "deepseek-v2-236b": {
+        "steps": {"loss": 1.798e-07, "grad_norm_x": 3.208e-07,
+                  "consensus_x": 4.368e-07},
+        "evals": {"M_t": 1.423e-07, "stiefel_residual": 1.186e-07}},
+    "llama-3.2-vision-11b": {
+        "steps": {"loss": 1.828e-07, "grad_norm_x": 3.314e-07,
+                  "consensus_x": 3.269e-07},
+        "evals": {"M_t": 4.158e-07, "stiefel_residual": 2.360e-07}},
+}
+
+
+def lm_models_main(only: str = "") -> None:
+    """Record every run of :data:`LM_MODELS` (or ``only`` that one),
+    rewriting the file after each."""
+    out = json.loads(LM_MODELS_OUT.read_text()) if LM_MODELS_OUT.exists() \
+        else {"runs": {}}
+    for arch, settings in LM_MODELS.items():
+        if only and arch != only:
+            continue
+        out["runs"][arch] = lm_record(settings, LM_MODELS_CPU_GAP[arch])
+        LM_MODELS_OUT.write_text(json.dumps(out, indent=1) + "\n")
+        print(f"wrote {arch} to {LM_MODELS_OUT}", flush=True)
+
+
+def lm_models_tolerance_all(out: dict) -> dict:
+    """:func:`retolerance`'s rewrite of ``lm_models``' file: every run's
+    gates from its stored spread and :data:`LM_MODELS_CPU_GAP`."""
+    for arch, run in out["runs"].items():
+        run["tolerance"] = lm_tolerance(run["spread"],
+                                        LM_MODELS_CPU_GAP[arch])
+    return out
 
 
 def retolerance(name: str) -> None:
@@ -988,17 +1080,22 @@ def retolerance(name: str) -> None:
     (after its CPU gaps are re-measured), without running JAX again."""
     path, gates = RETOLERANCE[name]
     out = json.loads(path.read_text())
-    out["tolerance"] = gates(out["spread"])
+    if name == "lm_models":
+        out = lm_models_tolerance_all(out)
+    else:
+        out["tolerance"] = gates(out["spread"])
     path.write_text(json.dumps(out, indent=1) + "\n")
     print(f"rewrote the gates of {path}")
 
 
 TARGETS = {"fair": fair_main, "dro": dro_main, "robust_pca": pca_main,
-           "elastic": elastic_main, "lm": lm_main}
+           "elastic": elastic_main, "lm": lm_main,
+           "lm_models": lm_models_main}
 RETOLERANCE = {"fair": (OUT, tolerance), "dro": (DRO_OUT, dro_tolerance),
                "robust_pca": (PCA_OUT, pca_tolerance),
                "elastic": (ELASTIC_OUT, elastic_tolerance),
-               "lm": (LM_OUT, lm_tolerance)}
+               "lm": (LM_OUT, lm_tolerance),
+               "lm_models": (LM_MODELS_OUT, None)}
 
 
 def main(argv=None) -> None:
@@ -1007,6 +1104,9 @@ def main(argv=None) -> None:
     for name in names:
         if name.endswith("_retolerance"):
             retolerance(name[:-len("_retolerance")])
+            continue
+        if name.startswith("lm_models:"):
+            lm_models_main(name.split(":", 1)[1])
             continue
         TARGETS[name]()
 

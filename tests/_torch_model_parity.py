@@ -5,7 +5,8 @@ by ``tests/test_torch_models_*.py`` after ``pytest.importorskip("jax")``.
 
 Tolerances: logits, caches and the MoE auxiliary loss within 1e-5
 absolute (fp32 products, norms and softmax summed in another order
-through two layers); greedy tokens exactly.
+through two layers); greedy tokens exactly.  A model with a frontend
+takes the same NumPy embeddings on both sides (:func:`frontend`).
 """
 from __future__ import annotations
 
@@ -54,6 +55,22 @@ def prompts(cfg, batch: int, length: int, seed: int) -> np.ndarray:
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def frontend(cfg, batch: int, seed: int) -> np.ndarray | None:
+    """(B, n_tokens, embed_dim) frontend embeddings from a seed
+    (``convert.lm_frontend_from_seed``); None without a frontend."""
+    if cfg.frontend is None:
+        return None
+    return convert.lm_frontend_from_seed(cfg, 1, batch, seed)[0]
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
 def ragged(cfg, lengths, seed: int) -> list:
     """One prompt (a token list) per length, from a seed."""
     return [prompts(cfg, 1, n, seed + i)[0].tolist()
@@ -85,34 +102,43 @@ def check_parameter_trees(model) -> None:
             == shapes
 
 
-def check_forward(model, tokens: np.ndarray):
-    """Train-mode logits and aux within 1e-5; returns (logits, aux)."""
+def check_forward(model, tokens: np.ndarray, fe: np.ndarray | None = None):
+    """Train-mode logits and aux within 1e-5 (with frontend embeddings
+    ``fe``, where given); returns (logits, aux)."""
     jcfg, jparams, cfg, params = model
-    jlogits, jaux, _ = _jforward(jparams, jcfg, jnp.asarray(tokens))
-    logits, aux, _ = T.forward(params, cfg, torch.from_numpy(tokens).long())
+    jlogits, jaux, _ = _jforward(jparams, jcfg, jnp.asarray(tokens),
+                                 frontend_embeds=_j(fe))
+    logits, aux, _ = T.forward(params, cfg, torch.from_numpy(tokens).long(),
+                               frontend_embeds=_t(fe))
     _close(logits.numpy(), jlogits)
     _close(float(aux), float(jaux))
     return logits, aux
 
 
-def check_prefill_and_decode(model, tokens: np.ndarray, steps: int) -> None:
+def check_prefill_and_decode(model, tokens: np.ndarray, steps: int,
+                             fe: np.ndarray | None = None) -> dict:
     """Prefill (cache of S + ``steps``) and ``steps`` contiguous decode
-    steps of seeded tokens, each side from its own caches: logits and the
-    final caches within 1e-5."""
+    steps of seeded tokens (with frontend embeddings ``fe``, where given),
+    each side from its own caches: logits and the final caches within
+    1e-5.  Returns the port's caches."""
     jcfg, jparams, cfg, params = model
     b, s = tokens.shape[:2]
     jlogits, _, jcaches = _jforward(jparams, jcfg, jnp.asarray(tokens),
-                                    mode="prefill", cache_len=s + steps)
+                                    frontend_embeds=_j(fe), mode="prefill",
+                                    cache_len=s + steps)
     logits, _, caches = T.forward(params, cfg, torch.from_numpy(tokens),
-                                  mode="prefill", cache_len=s + steps)
+                                  frontend_embeds=_t(fe), mode="prefill",
+                                  cache_len=s + steps)
     _close(logits.numpy(), jlogits)
     nxt = prompts(cfg, b, steps, seed=99)
     for i in range(steps):
         pos = np.full((b,), s + i, np.int32)
         jl, jcaches = _jdecode(jparams, jcfg, jnp.asarray(nxt[:, i]),
-                               jnp.asarray(pos), jcaches)
+                               jnp.asarray(pos), jcaches,
+                               frontend_embeds=_j(fe))
         lg, caches = T.decode_step(params, cfg, torch.from_numpy(nxt[:, i]),
-                                   torch.from_numpy(pos), caches)
+                                   torch.from_numpy(pos), caches,
+                                   frontend_embeds=_t(fe))
         _close(lg.numpy(), jl)
     want = jax.tree.map(np.asarray, jcaches)
     paths, got, _ = tree_flatten_with_path(convert.tree_to_reference(caches))
@@ -120,14 +146,19 @@ def check_prefill_and_decode(model, tokens: np.ndarray, steps: int) -> None:
     assert paths == wpaths
     for p, a, w in zip(paths, got, wleaves):
         np.testing.assert_allclose(a, w, atol=TOL, rtol=0, err_msg=p)
+    return caches
 
 
-def check_generate(model, tokens: np.ndarray, n_new: int) -> np.ndarray:
-    """Greedy contiguous-cache ``generate`` tokens equal the JAX
-    package's; returns them."""
+def check_generate(model, tokens: np.ndarray, n_new: int,
+                   fe: np.ndarray | None = None) -> np.ndarray:
+    """Greedy contiguous-cache ``generate`` tokens (with frontend
+    embeddings ``fe``, where given) equal the JAX package's; returns
+    them."""
     jcfg, jparams, cfg, params = model
-    want = np.asarray(jgenerate(jcfg, jparams, jnp.asarray(tokens), n_new))
-    got = generate(cfg, params, torch.from_numpy(tokens), n_new).numpy()
+    want = np.asarray(jgenerate(jcfg, jparams, jnp.asarray(tokens), n_new,
+                                frontend_embeds=_j(fe)))
+    got = generate(cfg, params, torch.from_numpy(tokens), n_new,
+                   frontend_embeds=_t(fe)).numpy()
     assert got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     return got

@@ -504,6 +504,13 @@ ATTN_GATE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 24, 24, 8, 2, 20, 20, True, None),       # granite-3-8b SMOKE
     (1, 24, 24, 8, 2, 16, 16, True, None),       # granite-3-2b SMOKE
     (2, 13, 13, 4, 2, 32, 32, True, 8),          # gemma3 SMOKE
+    # MLA (q/k head dim != v head dim) and cross-attention (not causal)
+    (4, 256, 256, 128, 128, 192, 128, True, None),  # deepseek prefill, SIMT
+    (4, 1, 272, 128, 128, 192, 128, True, None),    # deepseek decode
+    (2, 13, 13, 4, 4, 48, 32, True, None),          # deepseek SMOKE
+    (2, 512, 1600, 32, 8, 128, 128, False, None),   # llama-vision cross
+    (2, 1, 1600, 32, 8, 128, 128, False, None),     # its decode
+    (2, 13, 16, 4, 2, 32, 32, False, None),         # llama-vision SMOKE
 ])
 def test_cuda_flash_attention_vs_plain(cuda, case, dtype):
     """Both routes of the kernel, chosen by shape: the tensor cores for
@@ -716,6 +723,11 @@ BWD_GATE = 1e-5     # relative to the largest |plain| value of dq, dk, dv
     (2, 64, 64, 6, 2, 32, 32, True, None, 20),    # kv -1, rows without keys
     (2, 50, 70, 4, 4, 64, 64, False, None, 0),    # non-causal
     (1, 70, 70, 4, 1, 128, 128, True, None, 0),   # the largest head dims
+    (8, 15, 15, 4, 4, 48, 32, True, None, 0),     # MLA at SMOKE (tensor)
+    (2, 37, 45, 4, 2, 40, 24, True, None, 0),     # hdv != hd, SIMT
+    (8, 15, 16, 4, 2, 32, 32, False, None, 0),    # cross at SMOKE, S != T
+    (1, 256, 1600, 32, 8, 128, 128, False, None, 0),  # cross, llama widths
+    (2, 37, 61, 4, 2, 40, 24, False, None, 0),    # cross, SIMT
 ])
 def test_cuda_flash_attention_backward_vs_plain(cuda, case):
     from repro_torch.kernels import flash_attention as _fa

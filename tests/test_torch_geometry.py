@@ -283,3 +283,47 @@ def test_dense_mix_matches_reference(topology):
     w = _t(spec.matrix)
     np.testing.assert_allclose(_np(tg.mix_dense(w, {"x": _t(x)}, 2)["x"]),
                                want, atol=1e-6)
+
+
+@pytest.mark.parametrize("d, r", [(1024, 64), (1100, 48)])
+def test_polar_long_reductions_are_chunked(d, r):
+    """``retract_polar`` sums a reduction above ``ref.LONG_K`` in chunks of
+    ``ref.CHUNK_K`` (a card's whole fp32 reductions at k = 2048 left the
+    retraction several times less orthonormal than the CPU's): up to
+    LONG_K it is bitwise the whole-reduction formula; above it the Gram
+    is bitwise the chunked sum, and the result is the JAX package's
+    within 1e-5 and the fp64 retraction's within 2e-5; ``ref.matmul``
+    (the Newton-Schulz products) is bitwise the chunked sum above LONG_K
+    and the plain product up to it."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(d + r)
+    x = np.linalg.qr(rng.standard_normal((d, r)))[0].astype(np.float32)
+    xt = torch.from_numpy(x)
+    u = ref.stiefel_project_ref(xt, 1e-2 * torch.from_numpy(
+        rng.standard_normal((d, r)).astype(np.float32)))
+    got = tst.retract_polar(xt, u)
+    utu = torch.einsum("...dr,...ds->...rs", u, u)
+    if d <= ref.LONG_K:
+        inv = tst.invsqrt_spd(torch.eye(r) + utu)
+        want = torch.einsum("...dr,...rs->...ds", xt + u, inv)
+        assert torch.equal(got, want)
+        return
+    parts = [u[k0:k0 + ref.CHUNK_K] for k0 in range(0, d, ref.CHUNK_K)]
+    gram = torch.einsum("dr,ds->rs", parts[0], parts[0])
+    for p in parts[1:]:
+        gram = gram + torch.einsum("dr,ds->rs", p, p)
+    assert torch.equal(tst._gram(u), gram)
+    jgot = jst.retract_polar(jnp.asarray(x), jnp.asarray(u.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), atol=1e-5,
+                               rtol=0)
+    exact = tst.retract_polar(xt.double(), u.double())
+    assert float((got.double() - exact).abs().max()) < 2e-5
+    a = torch.from_numpy(rng.standard_normal((3, d)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((d, 5)).astype(np.float32))
+    want = a[:, :ref.CHUNK_K] @ b[:ref.CHUNK_K]
+    for k0 in range(ref.CHUNK_K, d, ref.CHUNK_K):
+        want = want + a[:, k0:k0 + ref.CHUNK_K] @ b[k0:k0 + ref.CHUNK_K]
+    assert torch.equal(ref.matmul(a, b), want)
+    assert torch.equal(ref.matmul(a[:, :ref.LONG_K], b[:ref.LONG_K]),
+                       a[:, :ref.LONG_K] @ b[:ref.LONG_K])

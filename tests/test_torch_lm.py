@@ -355,3 +355,33 @@ def test_projection_accuracy_variants_apply_to_the_shipped_header(variant):
         assert text.count(old) == 1
         text = text.replace(old, new)
     assert ("part[mt][nt]" in text) == (variant == "shipped")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-large",
+                                  "deepseek-v2-236b", "llama-3.2-vision-11b"])
+def test_models_reference_gates_every_run(arch):
+    """Each recorded run of ``tests/data/lm_models_reference.json`` held
+    against itself is within every gate; its settings name the recorded
+    size; a gated loss point moved past its gate is reported; the gates
+    follow the recipe (max(10x spread, 10x the CPU gap, 1e-4) while the
+    spread stays under 1e-3, null after)."""
+    ref = train.load_reference(arch)
+    s = ref["settings"]
+    assert s["arch"] == arch and s["n_nodes"] == 4 and s["steps"] == 10
+    cfg = train.reference_config(s)
+    assert cfg.name.endswith("-smoke") == bool(s["smoke"])
+    assert s["smoke"] or (cfg.n_layers, s["n_layers"]) == (2, 2)
+    same = {"steps": ref["steps"], "evals": ref["evals"]}
+    assert train.within_reference(train.compare_to_reference(same, ref))
+    gates = ref["tolerance"]["steps"]["loss"]
+    spread = ref["spread"]["steps"]["loss"]
+    for i, (g, sp) in enumerate(zip(gates, spread)):
+        if all(x <= 1e-3 for x in spread[:i + 1]):
+            assert g >= max(10 * sp, 1e-4)
+        else:
+            assert g is None
+    i = next(i for i, g in enumerate(gates) if g is not None)
+    moved = json.loads(json.dumps(same))
+    moved["steps"][i]["loss"] *= 1.0 + 2 * gates[i]
+    assert not train.within_reference(train.compare_to_reference(moved,
+                                                                 ref))

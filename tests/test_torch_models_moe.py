@@ -8,9 +8,14 @@ and the router's auxiliary loss (summed over blocks) within 1e-5;
 prefill and 3 contiguous decode steps within 1e-5; greedy ``generate``
 tokens, and the paged engine's greedy tokens with fewer requests than
 slots (empty slots take expert capacity in both engines' waves), equal to
-the JAX package's.  The trainer refuses MoE and codebook configs.
+the JAX package's.  The trainer and the training CLI take MoE and
+codebook configs (their parity with the JAX trainer is in
+``tests/test_torch_lm_moe.py`` and ``tests/test_torch_lm_streams.py``).
 """
 from __future__ import annotations
+
+import json
+import math
 
 import pytest
 
@@ -63,12 +68,17 @@ def test_engine_tokens_equal_reference_engine(model):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-large"])
-def test_trainer_refuses_moe_and_codebooks(arch):
+def test_trainer_and_cli_take_moe_and_codebooks(arch, capsys):
+    """``build_trainer`` builds both, and the CLI takes one step on 2
+    nodes: a finite loss and a feasible Stiefel tree."""
     cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_trainer(cfg, 2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
-                    "1", "--nodes", "2"])
-    dense = configs.get_config("granite-3-2b", smoke=True)
-    assert build_trainer(dense, 2)[0].gossip.n_nodes == 2
+    opt, problem = build_trainer(cfg, 2)
+    assert opt.gossip.n_nodes == 2
+    assert problem.name == f"group-dro-lm/{cfg.name}"
+    rc = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps",
+                     "1", "--nodes", "2", "--batch-per-node", "2",
+                     "--seq-len", "8"])
+    assert rc == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["step"] == 1 and math.isfinite(row["loss"])
+    assert row["stiefel_residual"] < 1e-2
