@@ -59,8 +59,9 @@
    32, deepseek-v2's MLA (q/k head dim 192, v head dim 128, 128 heads:
    the SIMT route; at SMOKE 48 / 32 on the tensor cores) and
    llama-vision's cross-attention (not causal, 512 or 1 queries over
-   1600 frontend keys; at SMOKE 13 over 16), each on the route its shape
-   takes.  Query rows without keys and empty
+   1600 frontend keys; at SMOKE 13 over 16) and zamba2-2.7b's head dim 80
+   (32:32, a prefill of 2 x 1000 tokens and a decode step over 1015
+   keys), each on the route its shape takes.  Query rows without keys and empty
    slots must be exact zeros.
    The attention backward kernel (``flash_attention_bwd``, no TPU
    counterpart; its tensor-core route at hd = 64, handed the forward's lse
@@ -69,18 +70,25 @@
    S = T = 63, GQA 9:3, fp32), at S = T = 512 with window 48, and at
    S = T = 2048 causal, and at MLA's and cross-attention's shapes
    (BWD_SHAPES: hd 48 / hdv 32 on the tensor cores, 40 / 24 on the SIMT
-   route, causal and not, S != T up to 256 queries over 1600 keys),
+   route, causal and not, S != T up to 256 queries over 1600 keys), and at
+   zamba2-2.7b's training shape (hd 80, 32:32, B = 16, S = T = 63),
    beside SDPA's backward (``torch.autograd.grad`` of
    one SDPA call under the same mask), the trainer's shape also read by
    ``torch.profiler`` (the trainer's shape runs at the host's pace under
    CUDA events), bound at the 165 TFLOP/s of fp32
    products on the tensor cores (3xTF32); every case repeats bit for
    bit, rows without keys pass exact zeros, bf16 raises.
-   Then the geometries: Grassmann (polar and QR), oblique, sphere and a
+   Then the Mamba2 block's SSD core (plain PyTorch) at zamba2-2.7b's full
+   width (B 2, S 1000 in chunks of 256, H 80, N 64, P 64, fp32): chunked
+   against sequential within 1e-4 of the largest |y|, and the card's
+   chunked output no further from an fp64 recurrence than twice the
+   CPU's.  Then the geometries: Grassmann (polar and QR), oblique, sphere and a
    Product of all five on node-stacked (20, 784, 64) and (20, 20, 3) inputs
    from a seed, every op on the card against the CPU (1e-5 relative; dist
    1e-4 absolute) and the axioms on the card (R_x(0) = x to 1e-5, check
-   < 1e-5 after a step).
+   < 1e-5 after a step).  Then ``analysis.contracts.run`` on the card: no
+   findings (every W_t of the channel and elastic sweeps symmetric doubly
+   stochastic, every retraction of every geometry on its manifold).
 4. Main path, three paths, each with the launch counts set to 0 just
    before it and read just after:
    * full precision: DRGDA (full batch, polar_fused) and DRSGDA (minibatch)
@@ -187,9 +195,21 @@
    decode step; every step's logits within 1e-3 of a teacher-forced
    forward, for deepseek's MoE the prefill's last position against a
    forward of the prompts, the same dispatch group, with every decode
-   step's group asserted to fit the experts' capacity): tokens/s, the
+   step's group asserted to fit the experts' capacity) and zamba2-2.7b
+   (all 54 layers, 2.9 B parameters; 2 prompts of 1000 tokens, 16 new;
+   9 attention layers, so 144 flash_attention launches; first cut to its
+   first supercell of 6 layers, every step within 1e-3 of the forward;
+   at 54 layers within 1e-3 or twice the gap between the forward with the
+   chunked SSD and with the sequential one, both reported): tokens/s, the
    median wave or step, TTFT and peak memory serving and at init.
-   Then every SMOKE config (the eight) on the card against the CPU.
+   Then every SMOKE config (the nine) on the card against the CPU.  Then
+   the replica sync (``serve.ReplicaGroup``): 4 replicas of smollm-135m
+   at its published widths, ``perturb(0.02)``, 4 EF-int8 rounds of k = 2
+   with the launch counts set to 0 just before them: the drift never
+   rises and ends under 0.2 x the first, the wire bytes under half the
+   raw ones, quant_mix and multi_hop_mix_quant exactly once a round (a
+   tree of 12 leaves), the ms a round; then replica 0 serves 3 requests
+   through the paged engine.
    This phase runs after the main path's profile and agreement.
 6. LM training (``repro_torch.launch.train``), after serving, as its
    full-width states take half the card: the JAX package's recorded run
@@ -214,10 +234,12 @@
    trained configurations: every recorded JAX run of
    ``tests/data/lm_models_reference.json`` (granite-moe-1b-a400m and
    musicgen-large at their published widths cut to 2 layers,
-   deepseek-v2-236b and llama-3.2-vision-11b at SMOKE, 4 nodes of 2 x 64
-   tokens, 10 steps) held within its gates with its launches derived,
-   then each on 4 nodes of 4 x 64 tokens: the median step, device busy,
-   launches a step, peak memory, the JAX CLI's success rule.
+   deepseek-v2-236b, llama-3.2-vision-11b and zamba2-2.7b at SMOKE, 4
+   nodes of 2 x 64 tokens, 10 steps) held within its gates with its
+   launches derived, then each on 4 nodes of 4 x 64 tokens (zamba2-2.7b at
+   its published widths cut to a Mamba2 block and an attention block):
+   the median step, device busy, launches a step, peak memory, the JAX
+   CLI's success rule.
 7. Prints the kernel table as one JSON line (``launches`` from the path a
    kernel belongs to, the backward kernel's from the LM training path,
    fused_retract's twice: its cluster routes from the fair main path, its
@@ -2056,6 +2078,12 @@ MODEL_ATTENTION = (
      True),
     ("llama-vision SMOKE cross S=13 T=16", 2, 13, 16, 4, 2, 32, None, False,
      32, False),
+    # zamba2-2.7b: head dim 80 on the tensor cores, 32:32; its served
+    # traffic (2 prompts of 1000 tokens, 16 new: the last step reads 1015)
+    ("zamba2 prefill 32:32 hd=80 S=1000", 2, 1000, 1000, 32, 32, 80, None,
+     False),
+    ("zamba2 decode T=1015 32:32 hd=80", 2, 1, 1015, 32, 32, 80, None,
+     False),
 )
 # paged decode waves of the paged models (4 slots, one empty)
 MODEL_PAGED = (("granite-3-2b 32:8 hd=64", (32, 8, 64)),
@@ -2263,6 +2291,10 @@ BWD_SHAPES = (
      "tensor_core"),
     ("cross hd=40 hdv=24 S=37 T=61", 2, 37, 61, 4, 2, 40, 24, False,
      "simt"),
+    # zamba2-2.7b's training shape: 4 nodes x 4 sequences of 63 tokens,
+    # 32:32 at head dim 80
+    ("zamba2 trainer hd=80 B=16 S=T=63 32:32", 16, 63, 63, 32, 32, 80, 80,
+     True, "tensor_core"),
 )
 
 
@@ -2421,13 +2453,16 @@ def attention_backward_phase(device="cuda") -> dict:
 
 def _attention_calls(cfg, frontend: bool = False) -> list:
     """(hd, hdv, H, Hkv) of every ``flash_attention`` call of one forward
-    of ``cfg``: one per layer (MLA: q/k head dim qk_nope + qk_rope, v head
-    dim v_head_dim, H kv heads: K and V expanded per head), and with a
-    frontend one more per cross-attention layer."""
+    of ``cfg``: one per attention layer (MLA: q/k head dim qk_nope +
+    qk_rope, v head dim v_head_dim, H kv heads: K and V expanded per
+    head), and with a frontend one more per cross-attention layer; a
+    Mamba2 layer calls none."""
     calls = []
     for st in cfg.stages:
         for sp in st.blocks * st.repeat:
             a = sp.attn
+            if a is None:
+                continue
             if a.kind == "mla":
                 calls.append((a.qk_nope_head_dim + a.qk_rope_head_dim,
                               a.v_head_dim, cfg.n_heads, cfg.n_heads))
@@ -2448,17 +2483,19 @@ def _train_launches(cfg, steps: int, metric_calls: int,
     kernels (``flash_attention.backward_launches``: dq, dk/dv and, on the
     tensor-core route under GQA, the group sum) per call, and projects
     the Stiefel tree in one grouped call (``stiefel_project_leaves``: one
-    launch per 16 on-chip leaves, two per streaming leaf); a step takes one
-    gradient, that projection, and the retraction of each Stiefel leaf:
+    launch per ``MAX_LEAVES`` on-chip leaves, two per streaming leaf); a
+    step takes one gradient, that projection, and the retraction of each
+    Stiefel leaf:
     under ``"polar"`` the ``descent_update``'s two single-leaf projections
     and plain products, under ``"polar_fused"`` one ``fused_retract``
     launch (the projection inside it), on the global route where
     ``retract.cluster_size(r)`` is 0 (``fused_retract_global``, a part of
-    ``fused_retract``); it mixes x, u (one grouped ring call
-    per 16 leaves) and y, v (one leaf each); a metric call takes the global
-    gradient at the consensus point (forward, backward, projection) and y*
-    (forward)."""
+    ``fused_retract``); it mixes x, u (one grouped ring call per
+    ``MAX_LEAVES`` leaves) and y, v (one leaf each); a metric call takes
+    the global gradient at the consensus point (forward, backward,
+    projection) and y* (forward)."""
     from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import leaves as _lv
     from repro_torch.kernels import retract as _rt
     from repro_torch.kernels import stiefel_project as _sp
     from repro_torch.models import transformer as T
@@ -2474,7 +2511,7 @@ def _train_launches(cfg, steps: int, metric_calls: int,
 
     def project(leaves):
         onchip = sum(1 for d, r in leaves if _sp.cluster_size(d, r))
-        return -(-onchip // 16) + 2 * (len(leaves) - onchip)
+        return -(-onchip // _lv.MAX_LEAVES) + 2 * (len(leaves) - onchip)
 
     tree = project(stiefel)
     calls = _attention_calls(cfg, cfg.frontend is not None)
@@ -2489,7 +2526,7 @@ def _train_launches(cfg, steps: int, metric_calls: int,
     per_step = {"flash_attention": fwd, "flash_attention_bwd": bwd,
                 "stiefel_project": tree + (0 if fused else 2 * sum(
                     project([leaf]) for leaf in stiefel)),
-                "ring_mix": 2 * -(-len(xs) // 16) + 2,
+                "ring_mix": 2 * -(-len(xs) // _lv.MAX_LEAVES) + 2,
                 "fused_retract": len(stiefel) if fused else 0,
                 "fused_retract_global": sum(
                     1 for _, r in stiefel if _rt.cluster_size(r) == 0)
@@ -2640,10 +2677,14 @@ def train_phase() -> dict:
 
 # the other trained configurations: the recorded JAX runs of
 # tests/data/lm_models_reference.json (granite-moe-1b-a400m and
-# musicgen-large at their published widths cut to 2 layers, deepseek-v2-236b
-# and llama-3.2-vision-11b at SMOKE), then each on a 4-node ring of
-# TRAIN_BATCH x TRAIN_SEQ tokens a node
+# musicgen-large at their published widths cut to 2 layers, deepseek-v2-236b,
+# llama-3.2-vision-11b and zamba2-2.7b at SMOKE), then each on a 4-node ring
+# of TRAIN_BATCH x TRAIN_SEQ tokens a node: at its recorded size, or where
+# TRAIN_MODELS_CUT names it at its published widths cut to that many
+# blocks (``launch.train.reference_config``: zamba2-2.7b's are a Mamba2
+# block, then attention, 2560 wide)
 TRAIN_MODELS_NODES = 4
+TRAIN_MODELS_CUT = {"zamba2-2.7b": 2}
 
 
 def train_models_phase() -> dict:
@@ -2705,6 +2746,11 @@ def train_models_phase() -> dict:
         paths[f"train {arch}"] = dict(got)
         gc.collect()
         torch.cuda.empty_cache()
+        if arch in TRAIN_MODELS_CUT:
+            n = TRAIN_MODELS_CUT[arch]
+            cfg = train.reference_config({"arch": arch, "n_layers": n})
+            size = (f"published widths cut to {n} blocks: " + ", ".join(
+                b.kind for b in cfg.flat_blocks()))
         per_step, _ = _train_launches(cfg, 1, 0)
         _train_step_profile(cfg, per_step, steps=5, nodes=TRAIN_MODELS_NODES,
                             label=f"{arch} ({size})")
@@ -2873,6 +2919,47 @@ def _serve(cfg, params, spec, prompts, *, record: bool):
 def _has_moe(cfg) -> bool:
     return any(sp.kind == "moe_attn" for st in cfg.stages
                for sp in st.blocks)
+
+
+def _has_mamba(cfg) -> bool:
+    return any(sp.kind == "mamba" for st in cfg.stages for sp in st.blocks)
+
+
+class _sequential_ssd:
+    """While open, the Mamba2 prefill runs the sequential SSD
+    (``ssm.ssd_reference``, the recurrence a decode step runs) in place of
+    the chunked one."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm
+        self.saved = ssm._ssd_chunked
+        ssm._ssd_chunked = lambda x, b_, c_, dt, la, chunk: \
+            ssm.ssd_reference(x, b_, c_, dt, la)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm
+        ssm._ssd_chunked = self.saved
+
+
+def _zero_mamba_states(tree) -> None:
+    """Zero, in place, every Mamba2 block's ``ssm`` and ``conv`` state in
+    a tree of decode caches."""
+    for key, value in tree.items():
+        if key in ("ssm", "conv"):
+            value.zero_()
+        elif isinstance(value, dict):
+            _zero_mamba_states(value)
+
+
+def _step_gaps(a, b):
+    """Each decode step's largest |a - b| over the batch: a, b (B, steps,
+    ...)."""
+    return (a - b).abs().transpose(0, 1).flatten(1).amax(1)
+
+
+def _gap_list(gaps) -> str:
+    return "[" + ", ".join(f"{float(g):.1e}" for g in gaps) + "]"
 
 
 def _contiguous_logits(cfg, params, prompt, tokens, device,
@@ -3065,8 +3152,16 @@ SERVED_PAGED = ("granite-3-2b", "granite-3-8b", "granite-moe-1b-a400m")
 SERVED_CONTIGUOUS = {"gemma3-27b": (2, 1536, 16),
                      "musicgen-large": (4, 32, 32),
                      "deepseek-v2-236b": (4, 256, 16),
-                     "llama-3.2-vision-11b": (2, 512, 16)}
+                     "llama-3.2-vision-11b": (2, 512, 16),
+                     "zamba2-2.7b": (2, 1000, 16)}
 GEMMA3_LAYERS = 14
+# zamba2-2.7b's 54-layer decode against its teacher-forced forward, every
+# SSD the sequential one: a fixed gate, five times the 1e-3 that its first
+# supercell holds.  The 54 random-weight layers carry the rounding of the
+# two paths (B = 2 prefill and single-token steps, B = 1 forwards) to
+# 1.552e-03 (H100, PERF.md section 6); zeroing the Mamba2 states moves it
+# past the gate (checked in the same run)
+ZAMBA2_DECODE_TOL = 5e-3
 # deepseek-v2-236b: its dense MLA layer 0 and the first DEEPSEEK_MOE_LAYERS
 # of its 59 MoE layers (about 15.9 GB each in fp32; 2 so that the stacked
 # repeats' loop runs), about 37 GB of weights with the embedding and head
@@ -3091,7 +3186,8 @@ def _served_config(arch: str, smoke: bool = False):
 
 
 def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
-                      n_new: int) -> tuple[dict, dict]:
+                      n_new: int, tol: float = 1e-3,
+                      chunked_gate: bool = True) -> tuple[dict, dict]:
     """``launch.serve.generate`` (greedy) of ``batch`` seeded prompts of
     ``prompt_len`` tokens ((B, S, CB) with codebooks; with a frontend,
     each with its seeded embeddings), ``n_new`` tokens: first the same
@@ -3101,12 +3197,20 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
     once more a cross-attention layer, for the prefill and for each of
     the n_new - 1 decode steps, no other kernel), its tokens the argmax of
     the recorded logits wherever the top-2 margin exceeds 1e-3; then the
-    logits against a teacher-forced forward of prompt plus tokens (1e-3):
+    logits against a teacher-forced forward of prompt plus tokens
+    (``tol``):
     every step's, or with MoE blocks, whose capacity is per dispatch
     group, the prefill's last position's against a forward of the prompts
     alone, the same group (a decode step's group of ``batch`` tokens is
     asserted to fit every expert's capacity: no decode step drops a
-    token)."""
+    token).  With Mamba2 blocks the prefill and decode steps run once
+    more under the sequential SSD (the recurrence a decode step runs), fed
+    ``generate``'s tokens, against the teacher-forced forward under it;
+    the chunked pair (as served) is held to ``tol`` too unless
+    ``chunked_gate`` is false, and then reported only (at zamba2's 54
+    layers its two forwards lie 6.937e-03 apart, PERF.md section 6); and
+    the same decode with every Mamba2 state zeroed after the prefill must
+    lie past ``tol``, so that the gate sees a lost state."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -3130,26 +3234,39 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
                     raise AssertionError(f"{cfg.name}: a decode step of "
                                          f"{batch} tokens can drop tokens")
     serve_step = make_serve_step(cfg)
-    steps, rows = [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, _, caches = T.forward(params, cfg, prompts, frontend_embeds=fe,
-                                  mode="prefill",
-                                  cache_len=prompt_len + n_new,
-                                  last_logits_only=True)
-    tok = logits[:, -1].argmax(-1)
-    rows.append(logits[:, -1].float().cpu())
-    ttft = time.perf_counter() - t0
-    for i in range(n_new - 1):
-        t1 = time.perf_counter()
-        pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
-                         device="cuda")
-        lg, caches = serve_step(params, tok, pos, caches, frontend_embeds=fe)
-        tok = lg.argmax(-1)
-        rows.append(lg.float().cpu())
-        steps.append(time.perf_counter() - t1)
-    del caches
-    loop = torch.stack(rows, dim=1)           # (B, n_new, [CB,] V)
+
+    def decode_logits(feed=None, lose_states=False):
+        """The prefill, then n_new - 1 decode steps, each fed the argmax
+        or, given, ``feed[:, i]``: (B, n_new, [CB,] V) logits, TTFT and
+        the steps' walls.  ``lose_states`` zeroes every Mamba2 block's
+        SSM and conv state after the prefill (a fault for the gate to
+        catch)."""
+        steps, rows = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, caches = T.forward(params, cfg, prompts,
+                                      frontend_embeds=fe, mode="prefill",
+                                      cache_len=prompt_len + n_new,
+                                      last_logits_only=True)
+        if lose_states:
+            _zero_mamba_states(caches)
+        tok = logits[:, -1].argmax(-1)
+        rows.append(logits[:, -1].float().cpu())
+        ttft = time.perf_counter() - t0
+        for i in range(n_new - 1):
+            t1 = time.perf_counter()
+            pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
+                             device="cuda")
+            lg, caches = serve_step(params, tok if feed is None
+                                    else feed[:, i], pos, caches,
+                                    frontend_embeds=fe)
+            tok = lg.argmax(-1)
+            rows.append(lg.float().cpu())
+            steps.append(time.perf_counter() - t1)
+        del caches
+        return torch.stack(rows, dim=1), ttft, steps
+
+    loop, ttft, steps = decode_logits()
 
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -3177,15 +3294,51 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
         del full
         compared = "the prefill's last position vs a forward of the prompts"
     else:
-        for b in range(batch):
-            seq = torch.cat([prompts[b], tokens[b, :-1]])[None]
-            full, _, _ = T.forward(params, cfg, seq, frontend_embeds=None
-                                   if fe is None else fe[b:b + 1])
-            forced = full[0, prompt_len - 1:].float().cpu()
-            max_err = max(max_err, float((forced - loop[b]).abs().max()))
-            del full
+        def forced_logits():
+            rows = []
+            for b in range(batch):
+                seq = torch.cat([prompts[b], tokens[b, :-1]])[None]
+                full, _, _ = T.forward(params, cfg, seq, frontend_embeds=None
+                                       if fe is None else fe[b:b + 1])
+                rows.append(full[0, prompt_len - 1:].float().cpu())
+                del full
+            return torch.stack(rows)
+
+        forced = forced_logits()
+        max_err = float((forced - loop).abs().max())
         compared = "teacher-forced forward vs every step's logits"
-    if max_err > 1e-3:
+        if _has_mamba(cfg):
+            # the decode recurrence and the conv state held against the
+            # forward with every SSD the recurrence; the chunked pair as
+            # served beside it
+            with _sequential_ssd():
+                seq = forced_logits()
+                seq_loop = decode_logits(tokens)[0]
+                lost = decode_logits(tokens, lose_states=True)[0]
+            gap_q = _step_gaps(seq, seq_loop)
+            gap_c, spread = _step_gaps(forced, loop), _step_gaps(forced, seq)
+            gap_f = _step_gaps(seq, lost)
+            max_err = float(gap_q.max())
+            if chunked_gate:
+                max_err = max(max_err, float(gap_c.max()))
+            if float(gap_f[1:].max()) <= tol:
+                raise AssertionError(
+                    f"generate: with the Mamba2 states zeroed after the "
+                    f"prefill the decode stays within {tol:.0e} of the "
+                    f"forward ({_gap_list(gap_f)}): the gate cannot see a "
+                    f"lost state")
+            compared = (
+                f"under the sequential SSD, teacher-forced forward vs every "
+                f"step's logits {float(gap_q.max()):.3e}, per step "
+                f"{_gap_list(gap_q)}; with the chunked SSD (as served) "
+                f"{float(gap_c.max()):.3e}, per step {_gap_list(gap_c)} "
+                f"({'gated' if chunked_gate else 'reported, not gated'}); "
+                f"the chunked and sequential forwards apart "
+                f"{float(spread.max()):.3e}, per step {_gap_list(spread)}; "
+                f"with the Mamba2 states zeroed after the prefill (a fault) "
+                f"{float(gap_f[1:].max()):.3e}, per step {_gap_list(gap_f)}; "
+                f"max |logit| {float(loop.abs().max()):.3f}; gate {tol:.0e}")
+    if max_err > tol:
         raise AssertionError(f"generate: {compared} differ by "
                              f"{max_err:.3e}")
     stats = {"tokens_per_s": batch * n_new / wall, "waves": n_new - 1,
@@ -3202,7 +3355,7 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
         f"{1e3 * max(steps):.2f}); TTFT (prefill and first token) "
         f"{stats['ttft_ms']:.1f} ms; launches {got} (exactly {per_call} "
         f"per prefill and per step); {compared} max_abs_err={max_err:.3e} "
-        f"(<= 1e-3); tokens = argmax at every one of the {clear} clear "
+        f"(<= {tol:.3e}); tokens = argmax at every one of the {clear} clear "
         f"choices (of {tokens.numel()})")
     return got, stats
 
@@ -3211,14 +3364,30 @@ def serve_models_phase() -> dict:
     """Every other served configuration at its published widths
     (SERVED_PAGED, SERVED_CONTIGUOUS), one at a time, freed before the
     next; per model its launches, figures and peak memory (while serving,
-    and during init).  Returns each model's serving launches."""
+    and during init).  zamba2-2.7b first at its published widths cut to
+    its first supercell (5 Mamba2 layers and attention), held to the
+    teacher-forced forward within 1e-3 with the chunked SSD and with the
+    sequential one; at 54 layers with the sequential one within
+    ``ZAMBA2_DECODE_TOL`` (the chunked pair reported).  Returns each
+    model's serving launches."""
     import gc
 
     import torch
+    from repro_torch import configs
 
     paths = {}
     for arch in (*SERVED_PAGED, *SERVED_CONTIGUOUS):
         cfg = _served_config(arch)
+        if _has_mamba(cfg):
+            cell = dataclasses.replace(
+                cfg, name=f"{cfg.name} (cut to its first supercell)",
+                stages=configs.patterned_stages(cfg.stages[0].blocks,
+                                                len(cfg.stages[0].blocks)))
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = _init_model(cell)
+            _serve_contiguous(cell, params, *SERVED_CONTIGUOUS[arch])
+            del params
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3230,8 +3399,10 @@ def serve_models_phase() -> dict:
         if arch in SERVED_PAGED:
             got, stats = _serve_paged(cfg, params)
         else:
-            got, stats = _serve_contiguous(cfg, params,
-                                           *SERVED_CONTIGUOUS[arch])
+            got, stats = _serve_contiguous(
+                cfg, params, *SERVED_CONTIGUOUS[arch],
+                **({"tol": ZAMBA2_DECODE_TOL, "chunked_gate": False}
+                   if _has_mamba(cfg) else {}))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"  {cfg.name}: peak memory serving {peak:.2f} GiB (init "
             f"{init_peak:.2f} GiB); "
@@ -3393,6 +3564,186 @@ def serve_agreement_phase() -> None:
             f"tokens equal to the CPU's")
 
 
+# the SSD core at zamba2-2.7b's full width: B, S (4 chunks of 256, the last
+# padded), H, N, P
+SSD_SHAPE, SSD_CHUNK = (2, 1000, 80, 64, 64), 256
+SSD_ATOL = 1e-4      # the JAX package's test (tests/test_models.py)
+
+
+def _ssd_fp64(x, b_, c_, dt, la):
+    """The SSD recurrence of ``ssm.ssd_reference`` in fp64, token by
+    token: the oracle both fp32 versions are measured against."""
+    import torch
+    x, b_, c_, dt, la = (t.double() for t in (x, b_, c_, dt, la))
+    xb = x * dt[..., None]
+    bsz, s, h, p = x.shape
+    hst = x.new_zeros((bsz, h, b_.shape[-1], p))
+    ys = []
+    for t in range(s):
+        hst = hst * torch.exp(la[:, t])[..., None, None] + torch.einsum(
+            "bhn,bhp->bhnp", b_[:, t], xb[:, t])
+        ys.append(torch.einsum("bhn,bhnp->bhp", c_[:, t], hst))
+    return torch.stack(ys, dim=1), hst
+
+
+def ssd_phase() -> None:
+    """The Mamba2 block's SSD core (plain PyTorch, as it is plain ``jnp``
+    in the JAX package) at zamba2-2.7b's full width on the card, TF32 off:
+    the chunked form (``ssm._ssd_chunked``) against the sequential one
+    (``ssm.ssd_reference``) on the same seeded fp32 inputs, drawn as the
+    JAX test draws them, and both against an fp64 recurrence; the same
+    chunked call on the CPU beside it.  Gates: chunked against sequential
+    within the JAX test's 1e-4 taken relative to the largest |y| (the
+    JAX test's outputs stay near 20, these reach about 200, and fp32
+    rounds relative to the value), and the card's chunked output no
+    further from fp64 than twice the CPU's: a reduction the card sums
+    another way, as the plain polar retraction's long products did,
+    would show here."""
+    import numpy as np
+    import torch
+    from repro_torch.models import ssm
+
+    b, s, h, p, n = SSD_SHAPE
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    b_ = rng.standard_normal((b, s, h, n), dtype=np.float32)
+    c_ = rng.standard_normal((b, s, h, n), dtype=np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0).astype(np.float32)
+    la = (-dt * np.exp(0.5 * rng.standard_normal((b, s, h)))).astype(
+        np.float32)
+    host = [torch.from_numpy(a) for a in (x, b_, c_, dt, la)]
+    card = [a.to("cuda") for a in host]
+    y, hfin = ssm._ssd_chunked(*card, SSD_CHUNK)
+    chunked_ms = time_ms(lambda: ssm._ssd_chunked(*card, SSD_CHUNK), reps=5,
+                         warmup=1)
+    y0, h0 = ssm.ssd_reference(*card)
+    seq_ms = time_ms(lambda: ssm.ssd_reference(*card), reps=3, warmup=1)
+    y64, h64 = _ssd_fp64(*card)
+    y_cpu, _ = ssm._ssd_chunked(*host, SSD_CHUNK)
+    y, y0, hfin, h0 = (t.cpu() for t in (y, y0, hfin, h0))
+    y64, h64 = y64.cpu(), h64.cpu()
+    scale = float(y0.abs().max())
+    gap = float((y - y0).abs().max())
+    hgap = float((hfin - h0).abs().max())
+    card64 = float((y.double() - y64).abs().max())
+    cpu64 = float((y_cpu.double() - y64).abs().max())
+    seq64 = float((y0.double() - y64).abs().max())
+    card_cpu = float((y - y_cpu).abs().max())
+    held = "held" if gap <= SSD_ATOL else "not held"
+    log(f"  SSD (B, S, H, N, P) = {SSD_SHAPE}, chunk {SSD_CHUNK} (S padded "
+        f"to {-(-s // SSD_CHUNK) * SSD_CHUNK}), fp32: chunked vs sequential "
+        f"on the card max_abs_err={gap:.3e} (max |y| {scale:.3f}; gate "
+        f"{SSD_ATOL:.0e} x max |y| = {SSD_ATOL * scale:.3e}; the JAX test's "
+        f"absolute {SSD_ATOL:.0e} {held}), "
+        f"final state {hgap:.3e}; vs fp64: chunked card {card64:.3e}, "
+        f"chunked CPU {cpu64:.3e}, sequential card {seq64:.3e}; card vs "
+        f"CPU chunked {card_cpu:.3e}; chunked {chunked_ms:.3f} ms, "
+        f"sequential {seq_ms:.3f} ms (CUDA events)")
+    if not (gap <= SSD_ATOL * scale and hgap <= SSD_ATOL * float(
+            h0.abs().max()) and card64 <= 2.0 * cpu64):
+        raise AssertionError(f"SSD on the card: chunked vs sequential "
+                             f"{gap:.3e}, state {hgap:.3e}, vs fp64 card "
+                             f"{card64:.3e} CPU {cpu64:.3e}")
+
+
+# the replica sync: smollm-135m at its published widths, REPLICAS copies,
+# perturbed by REPLICA_NOISE, then REPLICA_ROUNDS EF-int8 rounds of k = 2
+REPLICAS, REPLICA_NOISE, REPLICA_ROUNDS = 4, 0.02, 4
+
+
+def replica_phase() -> dict:
+    """``serve.ReplicaGroup`` on the card: REPLICAS replicas of
+    smollm-135m at its published widths (random weights from seed 0),
+    ``perturb(REPLICA_NOISE)``, then ``sync(rounds=REPLICA_ROUNDS)`` with
+    the launch counts set to 0 just before it, each round timed
+    (synchronized).  Checks, the JAX test's own bounds: the drift does not
+    rise round to round and ends under 0.2 x the drift after the
+    perturbation; the wire bytes under half the raw ones; launches exactly
+    ``quant_mix`` one per ``leaves.MAX_LEAVES`` leaves a round (the fused
+    first hop of the tree) and ``multi_hop_mix_quant`` as many (the one
+    int8 tail hop), no other kernel.  Then replica 0 serves 3 requests
+    through the paged engine.  Returns the sync's launch counts."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import leaves, ops
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.serve import (ContinuousBatchingScheduler, ReplicaGroup,
+                                   Request, ServeEngine, serve_requests)
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get_config("smollm-135m")
+    params = _init_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    group = ReplicaGroup(params, REPLICAS, seed=0)
+    del params
+    d0 = group.perturb(REPLICA_NOISE)
+    per_round = -(-len(tree_leaves(group.params)) // leaves.MAX_LEAVES)
+    want = {"quant_mix": per_round * REPLICA_ROUNDS,
+            "multi_hop_mix_quant": per_round * REPLICA_ROUNDS}
+    ops.reset_launch_counts()
+    trace, walls = [], []
+    for _ in range(REPLICA_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trace += group.sync(rounds=1)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    counts = ops.launch_counts()
+    wire = group.wire_stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  ReplicaGroup: {REPLICAS} replicas of {cfg.name} "
+        f"({len(tree_leaves(group.params))} leaves), perturb "
+        f"{REPLICA_NOISE}: drift {d0:.6f}; sync {REPLICA_ROUNDS} rounds of "
+        f"k = {group.gossip.k} (EF-int8, quant_hops='all'): drift "
+        + ", ".join(f"{d:.6f}" for d in trace)
+        + f"; {statistics.median(walls):.3f} ms a round (median; drift "
+        f"reads included; min {min(walls):.3f}, max {max(walls):.3f}); "
+        f"wire {wire['wire_bytes']:.0f} of raw {wire['raw_bytes']:.0f} "
+        f"bytes ({wire['wire_bytes'] / wire['raw_bytes']:.4f}); peak "
+        f"{peak:.2f} GiB; launches {counts}")
+    if not (all(b <= a * (1 + 1e-6) for a, b in zip(trace, trace[1:]))
+            and trace[-1] < 0.2 * d0
+            and wire["wire_bytes"] < 0.5 * wire["raw_bytes"]
+            and wire["rounds"] == REPLICA_ROUNDS):
+        raise AssertionError(f"replica sync: drift {d0} -> {trace}, wire "
+                             f"{wire}")
+    got = {k: counts[k] for k in want}
+    others = {k: c for k, c in counts.items() if k not in want and c}
+    if got != want or others:
+        raise AssertionError(f"replica sync launches {counts}, want {want}")
+    spec = paged_spec(2, PROMPT_LENGTHS[1] + 8, PAGE_SIZE)
+    engine = ServeEngine(cfg, group.replica(0), kv_spec=spec, n_slots=2,
+                         temperature=0.0)
+    fin = serve_requests(engine, ContinuousBatchingScheduler(2, spec),
+                         [Request(prompt=p, max_new_tokens=8)
+                          for p in _serve_prompts(cfg)[:3]])
+    if len(fin) != 3 or any(len(r.tokens) != 8 for r in fin):
+        raise AssertionError(f"replica 0 served {len(fin)} requests")
+    log(f"  replica 0 through the paged engine: 3 requests x 8 tokens, "
+        f"{engine.steps_run} decode waves; tokens {fin[0].tokens}")
+    del group, engine
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
+def contracts_phase() -> None:
+    """``analysis.contracts.run`` on the card: every W_t of the channel
+    sweep (4 topologies x 3 schedules x 4 fault settings, 20 rounds) and
+    of the elastic sweep (3 churn schedules x 2 fault settings, 100
+    rounds) symmetric doubly stochastic with departed rows identity, and
+    every retraction of every registered geometry (``"polar_fused"``
+    through its kernel) on its manifold: no findings."""
+    from repro_torch.analysis import contracts
+
+    t0 = time.perf_counter()
+    findings = contracts.run(device="cuda")
+    log(f"  contracts.run(device='cuda'): {len(findings)} findings in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if findings:
+        raise AssertionError("contracts: " + "; ".join(
+            str(f) for f in findings[:5]))
+
+
 def main() -> int:
     try:
         import torch
@@ -3427,8 +3778,12 @@ def main() -> int:
     rows = kernel_phase()
     rows.update(attention_kernel_phase())
     rows.update(attention_backward_phase())
+    log("SSD at zamba2-2.7b's width:")
+    ssd_phase()
     log("geometries:")
     geometry_phase()
+    log("numerical contracts:")
+    contracts_phase()
     log("main path:")
     paths = main_path_phase()
     log("figures:")
@@ -3474,6 +3829,8 @@ def main() -> int:
     log("served configurations at their published widths:")
     paths.update(serve_models_phase())
     serve_agreement_phase()
+    log("replica sync:")
+    paths["replica"] = replica_phase()
     # last: its full-width states take half the card's memory
     log("LM training:")
     paths["train"], paths["train_polar_fused"] = train_phase()

@@ -24,12 +24,16 @@ hop-by-hop ``quant_ring_hops`` included: every hop decodes the same int8
 values).  The two-node ring keeps its own fp32 expression
 (``gossip.mix_ring``), and dense topologies apply ``W^steps`` by einsum.
 There is no ``shard_map`` counterpart: on one card every node row is local.
+Both names are registered in :data:`repro_torch.comms.api.BACKENDS`, the
+``"shard_map"`` factory to raise ``NotImplementedError``;
+:func:`make_backend` constructs through that registry.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.comms import api
 from repro_torch.comms.compress import quantize_det
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
@@ -197,6 +201,42 @@ def _quant_tree_bytes(tree) -> float:
 _STACKED = StackedBackend()
 
 
-def resolve_backend(spec) -> StackedBackend:
-    """The backend a ``GossipSpec`` routes through: the stacked one."""
+def resolve_backend(spec):
+    """The backend a ``GossipSpec`` routes through: ``spec.backend``, a
+    backend or a registry name (:func:`make_backend`), and the stacked
+    one when unset."""
+    be = getattr(spec, "backend", None)
+    if be is None:
+        return _STACKED
+    if isinstance(be, str):
+        return make_backend(be)
+    return be
+
+
+def make_backend(kind: str = "auto", *, mesh=None):
+    """Config-knob constructor, through the :data:`repro_torch.comms.api.
+    BACKENDS` registry: ``"auto"`` is ``"shard_map"`` where a mesh is
+    given and ``"stacked"`` otherwise; an unregistered name raises
+    ValueError."""
+    if kind == "auto":
+        kind = "stacked" if mesh is None else "shard_map"
+    factory = api.BACKENDS.get(kind)
+    if factory is None:
+        raise ValueError(f"unknown mix backend {kind!r}; registered: "
+                         f"{api.backend_names()}")
+    return factory(mesh=mesh)
+
+
+def _make_stacked(*, mesh=None):
     return _STACKED
+
+
+def _make_shard_map(*, mesh=None):
+    raise NotImplementedError(
+        "the port mixes on the stacked backend only; a mesh and the "
+        "shard_map backend wait for a backend over torch.distributed "
+        "(ROADMAP queue 1, item 7)")
+
+
+api.register_backend("stacked", _make_stacked)
+api.register_backend("shard_map", _make_shard_map)

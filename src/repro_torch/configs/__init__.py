@@ -5,11 +5,11 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (AttnSpec, BlockSpec, FrontendSpec,
-                                      ModelConfig, MoESpec, Stage,
+                                      ModelConfig, MoESpec, SSMSpec, Stage,
                                       patterned_stages, uniform_stages)
 
 __all__ = ["ARCH_IDS", "AttnSpec", "BlockSpec", "FrontendSpec",
-           "ModelConfig", "MoESpec", "Stage", "get_config",
+           "ModelConfig", "MoESpec", "SSMSpec", "Stage", "get_config",
            "patterned_stages", "uniform_stages"]
 
 _PORTED = {
@@ -21,6 +21,7 @@ _PORTED = {
     "musicgen-large": "repro_torch.configs.musicgen_large",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
 
 #: every architecture of the JAX package's registry, in its order

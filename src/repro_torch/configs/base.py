@@ -3,12 +3,12 @@
 The port's own copy of the JAX package's ``configs/base.py`` (whose
 package ``__init__`` imports JAX), cut to the fields the transformer, the
 MoE layer, the paged KV cache, the serving path, the LM objective and the
-trainer read.  Field names, defaults and meanings are the reference's.
-The stubbed modality
+trainer read, and the Mamba2 block's :class:`SSMSpec`.  Field names,
+defaults and meanings are the reference's.  The stubbed modality
 frontend (:class:`FrontendSpec`, ``ModelConfig.frontend``) is carried
 over: a model with one takes precomputed embeddings, which its
-cross-attention layers read.  Not carried over: the SSM and xLSTM block
-specs, the TPU-only fields (``mesh_plan``, ``use_scan``, ``dtype``), and
+cross-attention layers read.  Not carried over: the xLSTM block spec,
+the TPU-only fields (``mesh_plan``, ``use_scan``, ``dtype``), and
 of :class:`MoESpec` the two knobs that only place the dispatch on a TPU
 mesh (``dispatch_spmd_axis``, ``expert_shard_axis``; ``dispatch_groups``
 stays: it sets the capacity per group, so it changes the numbers).  A
@@ -51,11 +51,24 @@ class MoESpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    """Mamba2 (SSD) block."""
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSpec:
     kind: BlockKind = "attn"
     attn: Optional[AttnSpec] = None
     moe: Optional[MoESpec] = None      # the routed FFN of a "moe_attn" block
-    has_mlp: bool = True               # dense SwiGLU MLP (ignored for moe)
+    ssm: Optional[SSMSpec] = None      # the Mamba2 mixer of a "mamba" block
+    has_mlp: bool = True               # dense SwiGLU MLP (ignored for moe
+    #                                    and mamba)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +165,12 @@ class ModelConfig:
     @property
     def n_layers(self) -> int:
         return sum(len(s.blocks) * s.repeat for s in self.stages)
+
+    def flat_blocks(self) -> list[BlockSpec]:
+        out: list[BlockSpec] = []
+        for s in self.stages:
+            out.extend(list(s.blocks) * s.repeat)
+        return out
 
 
 def uniform_stages(block: BlockSpec, n_layers: int) -> tuple[Stage, ...]:

@@ -141,14 +141,17 @@ def lm_batch_to_torch(batch: dict, device) -> dict:
 
 def lm_params_from_seed(cfg, seed: int) -> dict:
     """One node's transformer parameters (``"attn"`` and ``"moe_attn"``
-    blocks with GQA or MLA attention and cross-attention sublayers, one
-    token stream or ``n_codebooks``, a frontend projection) in the JAX
-    package's layout, as float32 NumPy arrays drawn from
-    ``numpy.random.default_rng(seed)``, each leaf at its JAX initializer's
-    scale (``src/repro/models/layers.py``, ``attention.py``, ``moe.py``):
-    embeddings N(0, 0.02^2), dense weights (MLA's down projections and
-    ``frontend_proj`` among them) and expert weights N(0, 1/d_in), the MoE
-    router N(0, 0.02^2), attention projections (MLA's up projections, the
+    blocks with GQA or MLA attention and cross-attention sublayers,
+    ``"mamba"`` blocks, one token stream or ``n_codebooks``, a frontend
+    projection) in the JAX package's layout, as float32 NumPy arrays drawn
+    from ``numpy.random.default_rng(seed)``, each leaf at its JAX
+    initializer's scale (``src/repro/models/layers.py``, ``attention.py``,
+    ``moe.py``, ``ssm.py``): embeddings N(0, 0.02^2), dense weights (MLA's
+    down projections, ``frontend_proj`` and Mamba2's ``in_proj`` and
+    ``out_proj`` among them) and expert weights N(0, 1/d_in), Mamba2's
+    causal conv N(0, 1/width), its ``a_log`` ``log(linspace(1, 16, H))``,
+    ``d_skip`` ones and ``dt_bias`` zeros, the MoE router N(0, 0.02^2),
+    attention projections (MLA's up projections, the
     cross-attention's ``wk_x``, ``wv_x``) orthonormal (the Q factor of a
     Gaussian, transposed for a wide matrix), norm scales ones; stacked
     repeats on a leading axis, codebooks on a leading (CB, ...) axis.  Not
@@ -203,7 +206,24 @@ def lm_params_from_seed(cfg, seed: int) -> dict:
             p["wv_x"] = orthogonal(d, cfg.n_kv_heads * hd)
         return p
 
+    def mamba(spec):
+        d_inner = spec.expand * d
+        h = d_inner // spec.head_dim
+        gn = spec.n_groups * spec.d_state
+        return {"in_proj": normal((d, 2 * d_inner + 2 * gn + h), d ** -0.5),
+                "conv": {"w": normal((spec.d_conv, d_inner + 2 * gn),
+                                     spec.d_conv ** -0.5)},
+                "a_log": np.log(np.linspace(1.0, 16.0, h)).astype(
+                    np.float32),
+                "d_skip": np.ones(h, np.float32),
+                "dt_bias": np.zeros(h, np.float32),
+                "norm": {"scale": np.ones(d_inner, np.float32)},
+                "out_proj": normal((d_inner, d), d_inner ** -0.5)}
+
     def block(spec):
+        if spec.kind == "mamba":
+            return {"ln1": {"scale": np.ones(d, np.float32)},
+                    "mamba": mamba(spec.ssm)}
         if spec.kind not in ("attn", "moe_attn"):
             raise NotImplementedError(f"block {spec} is not ported yet")
         p = {"ln1": {"scale": np.ones(d, np.float32)},

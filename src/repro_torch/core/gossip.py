@@ -29,6 +29,7 @@ from repro_torch.comms.spec import CommSpec
 from repro_torch.tree import tree_map
 
 if TYPE_CHECKING:
+    from repro_torch.comms.api import MixBackendProtocol
     from repro_torch.comms.elastic import ElasticSpec
 
 Tensor = torch.Tensor
@@ -167,6 +168,10 @@ class GossipSpec:
     # (repro_torch.comms.elastic.ElasticEngine): membership churn,
     # stale-hop tolerance, realized W_t over the live subgraph.
     elastic: Optional["ElasticSpec"] = None
+    # The mix backend (repro_torch.comms.api.MixBackendProtocol) or a
+    # registry name resolved by comms.backend.resolve_backend; None => the
+    # stacked backend.  launch/steps.py plugs in the one make_backend built.
+    backend: Optional["MixBackendProtocol | str"] = None
 
     @property
     def matrix(self) -> np.ndarray:
@@ -186,7 +191,7 @@ class GossipSpec:
 
     def mix(self, tree, steps: int | None = None):
         """Apply W^steps (default: the spec's k) to a node-stacked tree
-        through the stacked backend."""
-        from repro_torch.comms.backend import StackedBackend
+        through the spec's backend (the stacked one when unset)."""
+        from repro_torch.comms.backend import resolve_backend  # no cycle
         s = self.k if steps is None else steps
-        return StackedBackend().mix(self, tree, s)
+        return resolve_backend(self).mix(self, tree, s)

@@ -1,6 +1,7 @@
 """Serving launcher of the port (``src/repro/launch/serve.py``): batched
-autoregressive decode of a transformer (dense, MoE, MLA, codebooks or
-cross-attention onto a stubbed vision frontend), by default smollm-135m,
+autoregressive decode of a transformer (dense, MoE, MLA, codebooks,
+cross-attention onto a stubbed vision frontend, or Mamba2 blocks beside
+attention), by default smollm-135m,
 at its published widths with random weights from ``--seed``.
 
     python -m repro_torch.launch.serve                  # paged engine, card
@@ -9,14 +10,18 @@ at its published widths with random weights from ``--seed``.
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
     python -m repro_torch.launch.serve --arch gemma3-27b
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --smoke
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke
 
 ``--arch`` takes smollm-135m, granite-3-2b, granite-3-8b and
 granite-moe-1b-a400m (paged, or contiguous with ``--legacy``), and
 gemma3-27b (sliding windows), musicgen-large (4 codebooks; its prompts
 are (B, S, 4) and its tokens (B, n_new, 4)), deepseek-v2-236b (MLA, MoE)
 and llama-3.2-vision-11b (cross-attention; each prompt comes with
-n_tokens x embed_dim frontend embeddings, 0.1 * N(0, 1) from ``--seed``),
-which the paged engine refuses and which take the contiguous path.  The
+n_tokens x embed_dim frontend embeddings, 0.1 * N(0, 1) from ``--seed``)
+and zamba2-2.7b (Mamba2 blocks, whose decode carries a fixed-size state
+``{ssm, conv}`` in place of a KV cache, and 9 attention blocks at head dim
+80), which the paged engine refuses and which take the contiguous path;
+prompts are (B, S), of equal length, as ``generate`` takes them.  The
 path is picked by architecture, as the JAX launcher picks it: paged where
 the engine takes the configuration (``serve.kv_cache.refusal`` is None,
 the check behind the engine's ``validate_config``), else contiguous

@@ -15,6 +15,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.comms.backend import make_backend
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import OPTIMIZERS
 from repro_torch.core.gda import GDAHyper, broadcast_to_nodes
@@ -23,11 +24,6 @@ from repro_torch.geometry import as_manifold_map
 from repro_torch.models import transformer as T
 from repro_torch.objectives import lm as lm_obj
 from repro_torch.tree import tree_map
-
-#: the mix backends a trainer can take: the node axis stacked on axis 0 of
-#: every leaf on one device ("auto" resolves to it without a mesh)
-_STACKED_BACKENDS = ("auto", "stacked")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainSpec:
@@ -56,27 +52,25 @@ def build_trainer(cfg: ModelConfig, n_nodes: int,
     per mix (the paper's experimental regime).  Pass a :class:`TrainSpec`
     as ``spec`` (it wins over the keywords).
 
-    Gossip runs on the stacked backend: a ``mesh`` or a ``mix_backend`` of
-    ``"shard_map"`` raises NotImplementedError (the backend over
-    ``torch.distributed`` is ROADMAP queue 1, item 7)."""
+    The backend is constructed through the registry (``comms.api.
+    BACKENDS``, by ``comms.backend.make_backend``) and handed to the
+    optimizer in ``GossipSpec.backend``: ``"auto"`` and ``"stacked"`` give
+    the stacked backend; a ``mesh`` or a ``mix_backend`` of ``"shard_map"``
+    raises NotImplementedError (the backend over ``torch.distributed`` is
+    ROADMAP queue 1, item 7), an unregistered name ValueError."""
     comm = None
     if spec is not None:
         optimizer, topology = spec.optimizer, spec.topology
         mix_backend, telemetry = spec.mix_backend, spec.telemetry
         comm, elastic, hyper = spec.comm, spec.elastic, spec.hyper
     kind = mix_backend if mix_backend is not None else cfg.mix_backend
-    if mesh is not None or kind == "shard_map":
-        raise NotImplementedError(
-            "the port's trainer mixes on the stacked backend only; a mesh "
-            "and the shard_map backend wait for a backend over "
-            "torch.distributed (ROADMAP queue 1, item 7)")
-    if kind not in _STACKED_BACKENDS:
-        raise ValueError(f"unknown mix backend {kind!r}; known: "
-                         f"{_STACKED_BACKENDS + ('shard_map',)}")
+    if mesh is not None and kind == "stacked":
+        kind = "shard_map"       # a mesh asks for the backend over it
+    backend = make_backend(kind, mesh=mesh)
     problem = lm_obj.make_lm_problem(cfg, T.abstract_params(cfg))
     gossip = GossipSpec(topology=topology, n_nodes=n_nodes, k_steps=1,
                         comm=comm if comm is not None else cfg.comm_spec(),
-                        elastic=elastic)
+                        elastic=elastic, backend=backend)
     hyper = hyper or GDAHyper(alpha=0.5, beta=0.02, eta=0.05)
     opt = OPTIMIZERS[optimizer](problem, gossip, hyper, telemetry=telemetry)
     return opt, problem

@@ -8,7 +8,9 @@ the JAX CLI and its defaults, plus ``--device`` (default ``cuda``; the
 tests pass ``cpu``).  ``--arch`` takes every ported architecture:
 smollm-135m, granite-3-2b, granite-3-8b, gemma3-27b, musicgen-large (4
 codebook streams), granite-moe-1b-a400m and deepseek-v2-236b (MoE),
-llama-3.2-vision-11b (cross-attention onto a stubbed vision frontend).
+llama-3.2-vision-11b (cross-attention onto a stubbed vision frontend)
+and zamba2-2.7b (Mamba2 blocks beside attention; its Mamba2 leaves are
+Euclidean, its attention's wq, wk, wv and wo on the Stiefel manifold).
 TF32 is off for matmuls and cuDNN: the reference is fp32.  Initial weights
 are drawn with a ``torch.Generator`` seeded with ``--seed`` on the device
 (the JAX CLI draws with ``jax.random``, which the port cannot reproduce);
@@ -26,6 +28,7 @@ last evaluation.
     python -m repro_torch.launch.train --device cpu --smoke --steps 6 \
         --nodes 2 --telemetry --checkpoint-dir /tmp/ckpt --checkpoint-every 3
     python -m repro_torch.launch.train --arch llama-3.2-vision-11b --smoke
+    python -m repro_torch.launch.train --arch zamba2-2.7b --smoke
     python -m repro_torch.launch.train --reference [--device cpu]
     python -m repro_torch.launch.train --reference \
         --reference-arch granite-moe-1b-a400m
@@ -37,8 +40,8 @@ lm``: full-width smollm-135m cut in depth, from
 ``convert.lm_params_from_seed``), or with ``--reference-arch`` one of
 ``tests/data/lm_models_reference.json`` (``tests/_reference_curves.py
 lm_models``: granite-moe-1b-a400m and musicgen-large at their published
-widths cut to 2 layers, deepseek-v2-236b and llama-3.2-vision-11b at
-``SMOKE``, the frontend's embeddings from
+widths cut to 2 layers, deepseek-v2-236b, llama-3.2-vision-11b and
+zamba2-2.7b at ``SMOKE``, the frontend's embeddings from
 ``convert.lm_frontend_from_seed``).
 """
 from __future__ import annotations
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint, configs
-from repro_torch.configs.base import uniform_stages
+from repro_torch.configs.base import patterned_stages, uniform_stages
 from repro_torch.convert import (lm_batch_to_torch, lm_frontend_from_seed,
                                  lm_params_from_seed,
                                  transformer_params_from_reference)
@@ -250,15 +253,19 @@ def load_reference(arch: str = "smollm-135m") -> dict:
 
 def reference_config(settings: dict):
     """The recorded run's model: ``settings["arch"]``'s ``SMOKE`` config
-    where ``settings["smoke"]``, else its published widths with
-    ``settings["n_layers"]`` layers of its first block."""
+    where ``settings["smoke"]``, else its published widths cut to
+    ``settings["n_layers"]`` blocks that take the distinct blocks of its
+    published pattern in turn, in their order (a uniform configuration:
+    one stacked stage of its block; zamba2-2.7b: a Mamba2 block, then
+    attention)."""
     if settings.get("smoke"):
         return configs.get_config(settings["arch"], smoke=True)
     cfg = configs.get_config(settings["arch"])
-    block = cfg.stages[0].blocks[0]
-    return dataclasses.replace(
-        cfg, stages=uniform_stages(block, settings["n_layers"]),
-        name=f"{cfg.name}-{settings['n_layers']}L")
+    n = settings["n_layers"]
+    kinds = list(dict.fromkeys(cfg.flat_blocks()))
+    stages = uniform_stages(kinds[0], n) if len(kinds) == 1 \
+        else patterned_stages(kinds, n)
+    return dataclasses.replace(cfg, stages=stages, name=f"{cfg.name}-{n}L")
 
 
 def reference_batch(settings: dict, cfg, stream, t: int, device) -> dict:

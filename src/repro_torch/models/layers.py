@@ -98,3 +98,35 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv (the Mamba2 block's front conv)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d_init(generator: torch.Generator, channels: int, width: int,
+                       dtype=torch.float32) -> dict:
+    return {"w": (torch.randn((width, channels), generator=generator,
+                              device=draw_device(generator))
+                  * (1.0 / width) ** 0.5).to(dtype)}
+
+
+def causal_conv1d(params: dict, x: Tensor, state: Tensor | None = None):
+    """x: (B, S, C) depthwise causal conv, then SiLU.  With ``state``
+    (B, W-1, C), the last W-1 inputs before x, it runs in streaming mode
+    and returns (y, new_state).  The sum of shifted products in the JAX
+    package's order (not ``F.conv1d``), so the sums round alike."""
+    w = params["w"]                        # (W, C)
+    width, s = w.shape[0], x.shape[-2]
+    if state is None:
+        state = x.new_zeros((*x.shape[:-2], width - 1, x.shape[-1]))
+        streaming = False
+    else:
+        streaming = True
+    xp = torch.cat([state, x], dim=-2)     # (B, W-1+S, C)
+    y = torch.nn.functional.silu(
+        sum(xp[..., i:i + s, :] * w[i] for i in range(width)))
+    if not streaming:
+        return y
+    return y, xp[..., xp.shape[-2] - (width - 1):, :]

@@ -1,6 +1,7 @@
 """Model assembly of the port (``src/repro/models/transformer.py``): the
-dense ``"attn"`` block (attention + SwiGLU) and the ``"moe_attn"`` block
-(attention + the routed experts of ``models/moe.py``) in stages of stacked
+dense ``"attn"`` block (attention + SwiGLU), the ``"moe_attn"`` block
+(attention + the routed experts of ``models/moe.py``) and the ``"mamba"``
+block (the Mamba2 mixer of ``models/ssm.py``, no MLP) in stages of stacked
 repeats, with GQA or MLA attention (``models/attention.py``), an optional
 cross-attention sublayer onto a stubbed modality frontend (Llama-3.2
 Vision: precomputed embeddings, projected by ``frontend_proj``), and one
@@ -13,7 +14,8 @@ Entry points, plain functions over dicts of tensors:
                        returns contiguous caches);
   * ``decode_step``  - one new token against per-layer caches: contiguous
                        ``{"k", "v", "pos"}`` caches (MLA: the compressed
-                       ``{"c_kv", "k_rope", "pos"}``), or the paged serving
+                       ``{"c_kv", "k_rope", "pos"}``; Mamba2: the
+                       ``{"ssm", "conv"}`` state), or the paged serving
                        path's ``{"k_pages", "v_pages"}`` pools, with
                        ``position`` then ``(position, block_table)``;
   * ``init_params`` / ``init_cache`` - constructors;
@@ -28,8 +30,8 @@ does, so that ``repro_torch.convert`` is a plain copy.  The repeats run as
 a Python loop over that axis (``lax.scan`` in the JAX package); decode
 caches are views of the stacked tensors and are written in place.  The MoE
 router's auxiliary loss is summed over blocks and stages, as in the JAX
-package.  The block kinds ``mamba``, ``mlstm`` and ``slstm`` are not
-ported yet.
+package.  The xLSTM block kinds ``mlstm`` and ``slstm`` are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch
 from repro_torch.configs.base import BlockSpec, ModelConfig, Stage
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, draw_device, embed_init,
                                        rmsnorm, rmsnorm_init, swiglu,
                                        swiglu_init)
@@ -47,9 +50,8 @@ Tensor = torch.Tensor
 
 
 def _check_block(spec: BlockSpec) -> None:
-    """Refuse what the port does not run yet: the SSM and xLSTM block
-    kinds."""
-    if spec.kind not in ("attn", "moe_attn"):
+    """Refuse what the port does not run yet: the xLSTM block kinds."""
+    if spec.kind not in ("attn", "moe_attn", "mamba"):
         raise NotImplementedError(f"block kind {spec.kind!r} is not ported "
                                   f"yet")
 
@@ -63,6 +65,9 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                dtype=torch.float32) -> dict:
     _check_block(spec)
     dev = draw_device(generator)
+    if spec.kind == "mamba":
+        return {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
+                "mamba": ssm_mod.init_mamba(generator, cfg, spec.ssm, dtype)}
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
          "attn": attn_mod.init_attention(generator, cfg, spec.attn, dtype)}
     if spec.attn.cross_attn:
@@ -140,13 +145,18 @@ def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> dict:
 def init_cache(cfg: ModelConfig, bsz: int, cache_seq_len: int,
                dtype=torch.float32, device=None) -> dict:
     """Empty contiguous caches (positions -1), stacked per stage: GQA
-    ``{k, v, pos}``, MLA the compressed ``{c_kv, k_rope, pos}``."""
+    ``{k, v, pos}``, MLA the compressed ``{c_kv, k_rope, pos}``, Mamba2
+    the zero state ``{ssm, conv}``."""
     caches = {}
     for i, st in enumerate(cfg.stages):
         lead = (st.repeat,) if st.repeat > 1 else ()
         cell = {}
         for j, sp in enumerate(st.blocks):
             _check_block(sp)
+            if sp.kind == "mamba":
+                cell[f"b{j}"] = ssm_mod.init_mamba_cache(
+                    cfg, sp.ssm, bsz, dtype, device, lead)
+                continue
             a = sp.attn
             cl = attn_mod.attn_cache_len(a, cache_seq_len)
             if a.kind == "mla":
@@ -179,8 +189,17 @@ def apply_block(params: dict, cfg: ModelConfig, spec: BlockSpec, x: Tensor,
     ``frontend_embeds`` (B, N, d_model), already projected, feed a
     cross-attention sublayer; without them it is skipped."""
     _check_block(spec)
-    a = spec.attn
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if spec.kind == "mamba":
+        if mode == "decode":
+            y, cache = ssm_mod.mamba_decode(params["mamba"], h, cfg,
+                                            spec.ssm, cache)
+        else:
+            y, cache = ssm_mod.mamba_prefill(params["mamba"], h, cfg,
+                                             spec.ssm,
+                                             make_cache=(mode == "prefill"))
+        return x + y, 0.0, cache
+    a = spec.attn
     if mode == "decode":
         if a.kind == "mla":
             fn = attn_mod.mla_decode

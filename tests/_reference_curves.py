@@ -888,17 +888,22 @@ LM_CPU_GAP = {
 def lm_config(settings: dict = LM_SETTINGS):
     """A recorded run's model: ``settings["arch"]``'s ``SMOKE`` config
     where ``settings["smoke"]``, else its published widths cut to
-    ``settings["n_layers"]`` layers of its first block."""
+    ``settings["n_layers"]`` blocks that take the distinct blocks of its
+    published pattern in turn, in their order (a uniform configuration:
+    one stacked stage of its block; zamba2-2.7b: a Mamba2 block, then
+    attention)."""
     from repro import configs
-    from repro.configs.base import uniform_stages
+    from repro.configs.base import patterned_stages, uniform_stages
 
     if settings.get("smoke"):
         return configs.get_config(settings["arch"], smoke=True)
     cfg = configs.get_config(settings["arch"])
-    return dataclasses.replace(
-        cfg, stages=uniform_stages(cfg.stages[0].blocks[0],
-                                   settings["n_layers"]),
-        name=f"{cfg.name}-{settings['n_layers']}L")
+    n = settings["n_layers"]
+    kinds = list(dict.fromkeys(cfg.flat_blocks()))
+    stages = uniform_stages(kinds[0], n) if len(kinds) == 1 \
+        else patterned_stages(kinds, n)
+    return dataclasses.replace(cfg, stages=stages,
+                               name=f"{cfg.name}-{n}L")
 
 
 def lm_run(cfg, hyper, params, s: dict = LM_SETTINGS) -> dict:
@@ -1028,7 +1033,8 @@ LM_MODELS = {
     for arch, smoke in (("granite-moe-1b-a400m", False),
                         ("musicgen-large", False),
                         ("deepseek-v2-236b", True),
-                        ("llama-3.2-vision-11b", True))}
+                        ("llama-3.2-vision-11b", True),
+                        ("zamba2-2.7b", True))}
 # The port's largest gap from each recorded run on the CPU over the gated
 # points, as LM_CPU_GAP (`python -m repro_torch.launch.train --reference
 # --reference-arch <arch> --device cpu`; where a quantity has no gated
@@ -1050,6 +1056,10 @@ LM_MODELS_CPU_GAP = {
         "steps": {"loss": 1.828e-07, "grad_norm_x": 3.314e-07,
                   "consensus_x": 3.269e-07},
         "evals": {"M_t": 4.158e-07, "stiefel_residual": 2.360e-07}},
+    "zamba2-2.7b": {
+        "steps": {"loss": 1.634e-07, "grad_norm_x": 2.124e-07,
+                  "consensus_x": 3.301e-07},
+        "evals": {"M_t": 1.068e-07, "stiefel_residual": 4.584e-08}},
 }
 
 

@@ -77,8 +77,8 @@ def ragged(cfg, lengths, seed: int) -> list:
             for i, n in enumerate(lengths)]
 
 
-def _close(got, want):
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=TOL,
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
                                rtol=0)
 
 
@@ -102,25 +102,27 @@ def check_parameter_trees(model) -> None:
             == shapes
 
 
-def check_forward(model, tokens: np.ndarray, fe: np.ndarray | None = None):
-    """Train-mode logits and aux within 1e-5 (with frontend embeddings
-    ``fe``, where given); returns (logits, aux)."""
+def check_forward(model, tokens: np.ndarray, fe: np.ndarray | None = None,
+                  tol: float = TOL):
+    """Train-mode logits and aux within ``tol`` (default 1e-5; with
+    frontend embeddings ``fe``, where given); returns (logits, aux)."""
     jcfg, jparams, cfg, params = model
     jlogits, jaux, _ = _jforward(jparams, jcfg, jnp.asarray(tokens),
                                  frontend_embeds=_j(fe))
     logits, aux, _ = T.forward(params, cfg, torch.from_numpy(tokens).long(),
                                frontend_embeds=_t(fe))
-    _close(logits.numpy(), jlogits)
-    _close(float(aux), float(jaux))
+    _close(logits.numpy(), jlogits, tol)
+    _close(float(aux), float(jaux), tol)
     return logits, aux
 
 
 def check_prefill_and_decode(model, tokens: np.ndarray, steps: int,
-                             fe: np.ndarray | None = None) -> dict:
+                             fe: np.ndarray | None = None,
+                             tol: float = TOL) -> dict:
     """Prefill (cache of S + ``steps``) and ``steps`` contiguous decode
     steps of seeded tokens (with frontend embeddings ``fe``, where given),
     each side from its own caches: logits and the final caches within
-    1e-5.  Returns the port's caches."""
+    ``tol`` (default 1e-5).  Returns the port's caches."""
     jcfg, jparams, cfg, params = model
     b, s = tokens.shape[:2]
     jlogits, _, jcaches = _jforward(jparams, jcfg, jnp.asarray(tokens),
@@ -129,7 +131,7 @@ def check_prefill_and_decode(model, tokens: np.ndarray, steps: int,
     logits, _, caches = T.forward(params, cfg, torch.from_numpy(tokens),
                                   frontend_embeds=_t(fe), mode="prefill",
                                   cache_len=s + steps)
-    _close(logits.numpy(), jlogits)
+    _close(logits.numpy(), jlogits, tol)
     nxt = prompts(cfg, b, steps, seed=99)
     for i in range(steps):
         pos = np.full((b,), s + i, np.int32)
@@ -139,13 +141,13 @@ def check_prefill_and_decode(model, tokens: np.ndarray, steps: int,
         lg, caches = T.decode_step(params, cfg, torch.from_numpy(nxt[:, i]),
                                    torch.from_numpy(pos), caches,
                                    frontend_embeds=_t(fe))
-        _close(lg.numpy(), jl)
+        _close(lg.numpy(), jl, tol)
     want = jax.tree.map(np.asarray, jcaches)
     paths, got, _ = tree_flatten_with_path(convert.tree_to_reference(caches))
     wpaths, wleaves, _ = tree_flatten_with_path(want)
     assert paths == wpaths
     for p, a, w in zip(paths, got, wleaves):
-        np.testing.assert_allclose(a, w, atol=TOL, rtol=0, err_msg=p)
+        np.testing.assert_allclose(a, w, atol=tol, rtol=0, err_msg=p)
     return caches
 
 

@@ -511,6 +511,9 @@ ATTN_GATE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (2, 512, 1600, 32, 8, 128, 128, False, None),   # llama-vision cross
     (2, 1, 1600, 32, 8, 128, 128, False, None),     # its decode
     (2, 13, 16, 4, 2, 32, 32, False, None),         # llama-vision SMOKE
+    # zamba2-2.7b: head dim 80 (tensor cores), 32:32
+    (2, 1000, 1000, 32, 32, 80, 80, True, None),    # zamba2 prefill
+    (2, 1, 1015, 32, 32, 80, 80, True, None),       # zamba2 decode
 ])
 def test_cuda_flash_attention_vs_plain(cuda, case, dtype):
     """Both routes of the kernel, chosen by shape: the tensor cores for
@@ -728,6 +731,7 @@ BWD_GATE = 1e-5     # relative to the largest |plain| value of dq, dk, dv
     (8, 15, 16, 4, 2, 32, 32, False, None, 0),    # cross at SMOKE, S != T
     (1, 256, 1600, 32, 8, 128, 128, False, None, 0),  # cross, llama widths
     (2, 37, 61, 4, 2, 40, 24, False, None, 0),    # cross, SIMT
+    (16, 63, 63, 32, 32, 80, 80, True, None, 0),  # zamba2 training, hd 80
 ])
 def test_cuda_flash_attention_backward_vs_plain(cuda, case):
     from repro_torch.kernels import flash_attention as _fa

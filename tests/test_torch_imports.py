@@ -38,12 +38,15 @@ assert {"repro_torch.comms.elastic", "repro_torch.launch.elastic",
         "repro_torch.launch.steps", "repro_torch.launch.train",
         "repro_torch.models.moe", "repro_torch.models.attention",
         "repro_torch.models.transformer", "repro_torch.launch.serve",
-        "repro_torch.serve.kv_cache", "repro_torch.convert"} | {
+        "repro_torch.serve.kv_cache", "repro_torch.convert",
+        "repro_torch.models.ssm", "repro_torch.serve.replica",
+        "repro_torch.comms.api", "repro_torch.analysis.contracts"} | {
     "repro_torch.configs." + m for m in ("granite_3_2b", "granite_3_8b",
                                          "gemma3_27b", "musicgen_large",
                                          "granite_moe_1b_a400m",
                                          "deepseek_v2_236b",
-                                         "llama_3_2_vision_11b")} | {
+                                         "llama_3_2_vision_11b",
+                                         "zamba2_2p7b")} | {
     "repro_torch.obs." + m for m in ("events", "trace", "estimates", "wire",
                                      "telemetry")} <= set(names), names
 sys.path.insert(0, sys.argv[1])

@@ -38,6 +38,7 @@ from repro.launch.steps import init_train_state as jinit  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.objectives import lm as jlm  # noqa: E402
 from repro_torch import checkpoint, configs  # noqa: E402
+from repro_torch.configs import uniform_stages  # noqa: E402
 from repro_torch.convert import (lm_batch_to_torch,  # noqa: E402
                                  lm_params_from_seed,
                                  transformer_params_from_reference,
@@ -357,12 +358,40 @@ def test_projection_accuracy_variants_apply_to_the_shipped_header(variant):
     assert ("part[mt][nt]" in text) == (variant == "shipped")
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "deepseek-v2-236b",
+                                  "smollm-135m"])
+def test_reference_config_keeps_the_published_pattern(arch):
+    """A cut in depth takes the distinct blocks of the published pattern
+    in turn, as the recording script cuts it (``tests/_reference_curves.
+    py`` ``lm_config``): zamba2-2.7b a Mamba2 block, then attention;
+    deepseek-v2-236b a dense MLA layer, then MoE; a uniform configuration
+    one stacked stage."""
+    import _reference_curves as rc
+
+    settings = {"arch": arch, "n_layers": 2, "smoke": False}
+    cfg = train.reference_config(settings)
+    want = rc.lm_config(settings)
+    assert [b.kind for b in cfg.flat_blocks()] == \
+        [b.kind for b in want.flat_blocks()]
+    assert [(len(st.blocks), st.repeat) for st in cfg.stages] == \
+        [(len(st.blocks), st.repeat) for st in want.stages]
+    assert cfg.name == want.name == f"{arch}-2L"
+    kinds = {"zamba2-2.7b": ["mamba", "attn"],
+             "deepseek-v2-236b": ["attn", "moe_attn"],
+             "smollm-135m": ["attn", "attn"]}[arch]
+    assert [b.kind for b in cfg.flat_blocks()] == kinds
+    assert cfg.d_model == configs.get_config(arch).d_model
+
+
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-large",
-                                  "deepseek-v2-236b", "llama-3.2-vision-11b"])
+                                  "deepseek-v2-236b", "llama-3.2-vision-11b",
+                                  "zamba2-2.7b"])
 def test_models_reference_gates_every_run(arch):
     """Each recorded run of ``tests/data/lm_models_reference.json`` held
     against itself is within every gate; its settings name the recorded
-    size; a gated loss point moved past its gate is reported; the gates
+    size, and a configuration cut in depth is rebuilt as it was recorded
+    (two layers of its first block: the uniform ones keep one stacked
+    stage); a gated loss point moved past its gate is reported; the gates
     follow the recipe (max(10x spread, 10x the CPU gap, 1e-4) while the
     spread stays under 1e-3, null after)."""
     ref = train.load_reference(arch)
@@ -371,6 +400,9 @@ def test_models_reference_gates_every_run(arch):
     cfg = train.reference_config(s)
     assert cfg.name.endswith("-smoke") == bool(s["smoke"])
     assert s["smoke"] or (cfg.n_layers, s["n_layers"]) == (2, 2)
+    if not s["smoke"]:
+        first = configs.get_config(arch).stages[0].blocks[0]
+        assert cfg.stages == uniform_stages(first, 2)
     same = {"steps": ref["steps"], "evals": ref["evals"]}
     assert train.within_reference(train.compare_to_reference(same, ref))
     gates = ref["tolerance"]["steps"]["loss"]

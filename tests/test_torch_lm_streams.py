@@ -12,7 +12,10 @@ within 1e-5 (``tests/_torch_lm_parity.py``).
   CLI's own draw of the embeddings;
 * granite-3-2b (head dim 16), granite-3-8b (head dim 20: the attention
   kernels' SIMT routes on the card) and gemma3-27b (sliding-window local
-  layers beside global ones).
+  layers beside global ones);
+* zamba2-2.7b: a Mamba2 block (the chunked SSD scan, 16 tokens in one
+  chunk of 32, through ``torch.func.vmap(grad)``; its leaves Euclidean)
+  beside a GQA block whose wq, wk, wv and wo are on the Stiefel manifold.
 
 The cases share one file: pytest-xdist's ``loadfile`` queues files by
 their number of tests, so one-test files would run last, as the suite's
@@ -31,7 +34,7 @@ import _torch_lm_parity as lp  # noqa: E402
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-11b",
                                   "granite-3-2b", "granite-3-8b",
-                                  "gemma3-27b"])
+                                  "gemma3-27b", "zamba2-2.7b"])
 def test_trainer_matches_the_reference(arch):
     m = lp.check_trainer(arch)
     assert math.isfinite(float(m.loss))
