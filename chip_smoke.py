@@ -31,7 +31,11 @@
    tensor-core GEMMs over global memory; the kernel line's row of that
    route), (240, 576, 192) on its cluster route; then (8, 576, 576) and
    (8, 576, 257) on the global route; each repeated bit for bit, its
-   device time also read by ``torch.profiler`` and split by CUDA kernel.
+   device time also read by ``torch.profiler`` and split by CUDA kernel;
+   and at xlstm-1.3b's Stiefel leaves as its cut's ``"polar_fused"`` step
+   calls it on 4 nodes, (4, 4096, 4096) and (4, 4096, 2048), both on the
+   global route, within the same 5e-5 (a call of about a second: 3 timed
+   calls each).
    Every fp32 matrix product is bounded at the 3xTF32
    rate (495 / 3 TFLOP/s), whichever unit the kernel uses; a product that
    is symmetric in exact arithmetic counts one triangle.  quant_mix as the EF-int8 step calls
@@ -82,13 +86,24 @@
    width (B 2, S 1000 in chunks of 256, H 80, N 64, P 64, fp32): chunked
    against sequential within 1e-4 of the largest |y|, and the card's
    chunked output no further from an fp64 recurrence than twice the
-   CPU's.  Then the geometries: Grassmann (polar and QR), oblique, sphere and a
+   CPU's.  Then the mLSTM cell (plain PyTorch) at xlstm-1.3b's full
+   width (B 2, S 1000 in chunks of 256, H 4, dk 1024, fp32): the chunked
+   form and the recurrence on the card and on the CPU (the CPU's
+   recurrence over the first chunk), each against a float64 recurrence,
+   every gap and the largest |y| reported (not gated:
+   the chunked form is the JAX package's; a non-finite output fails).
+   Then the geometries: Grassmann (polar and QR), oblique, sphere and a
    Product of all five on node-stacked (20, 784, 64) and (20, 20, 3) inputs
    from a seed, every op on the card against the CPU (1e-5 relative; dist
    1e-4 absolute) and the axioms on the card (R_x(0) = x to 1e-5, check
    < 1e-5 after a step).  Then ``analysis.contracts.run`` on the card: no
    findings (every W_t of the channel and elastic sweeps symmetric doubly
-   stochastic, every retraction of every geometry on its manifold).
+   stochastic, every retraction of every geometry on its manifold).  Then
+   the analysis CLI on the card (``python -m repro_torch.analysis`` in
+   process: every pass, the kernels' Hopper budgets included, exit 0 and
+   no finding; ``--selftest``: every fixture fires) and each kernel's
+   registers a thread, shared memory a block and resident blocks over the
+   budget pass's launch configurations.
 4. Main path, three paths, each with the launch counts set to 0 just
    before it and read just after:
    * full precision: DRGDA (full batch, polar_fused) and DRSGDA (minibatch)
@@ -199,9 +214,22 @@
    (all 54 layers, 2.9 B parameters; 2 prompts of 1000 tokens, 16 new;
    9 attention layers, so 144 flash_attention launches; first cut to its
    first supercell of 6 layers, every step within 1e-3 of the forward;
-   at 54 layers within 1e-3 or twice the gap between the forward with the
-   chunked SSD and with the sequential one, both reported): tokens/s, the
-   median wave or step, TTFT and peak memory serving and at init.
+   at 54 layers within ``DECODE_TOL`` with every SSD the sequential one,
+   the chunked pair reported; a decode with the Mamba2 states zeroed
+   after the prefill, all of them, the conv windows alone or the last
+   repeat's alone, must fail that gate) and xlstm-1.3b (all 48 layers,
+   3.57 B parameters, no attention: no kernel launches, asserted; 2
+   prompts of 1000 tokens, 16 new; first its first supercell of 7 mLSTM
+   and 1 sLSTM layers, every step within 1e-3 of the forward with the
+   chunked mLSTM and with the recurrence; at 48 layers against a float64
+   forward of the same weights on the card (``F64_WITNESS``): the
+   float64 decode within ``XLSTM_F64_TOL``, each fp32 decode within
+   ``XLSTM_F32_RATIO`` times its fp32 forward's gap; every state, the
+   conv windows, the sLSTM states and the last repeat's states, each
+   zeroed after the prefill, must fail the float64 gate (in fp32
+   reported); the decode step's and the
+   prefill's bounds printed): tokens/s, the median wave or step, TTFT
+   and peak memory serving and at init.
    Then every SMOKE config (the nine) on the card against the CPU.  Then
    the replica sync (``serve.ReplicaGroup``): 4 replicas of smollm-135m
    at its published widths, ``perturb(0.02)``, 4 EF-int8 rounds of k = 2
@@ -234,16 +262,21 @@
    trained configurations: every recorded JAX run of
    ``tests/data/lm_models_reference.json`` (granite-moe-1b-a400m and
    musicgen-large at their published widths cut to 2 layers,
-   deepseek-v2-236b, llama-3.2-vision-11b and zamba2-2.7b at SMOKE, 4
-   nodes of 2 x 64 tokens, 10 steps) held within its gates with its
-   launches derived, then each on 4 nodes of 4 x 64 tokens (zamba2-2.7b at
-   its published widths cut to a Mamba2 block and an attention block):
-   the median step, device busy, launches a step, peak memory, the JAX
-   CLI's success rule.
+   deepseek-v2-236b, llama-3.2-vision-11b, zamba2-2.7b and xlstm-1.3b at
+   SMOKE, 4 nodes of 2 x 64 tokens, 10 steps) held within its gates with
+   its launches derived, then each on 4 nodes of 4 x 64 tokens
+   (zamba2-2.7b at its published widths cut to a Mamba2 block and an
+   attention block, xlstm-1.3b to an mLSTM and an sLSTM block, 313.7 M
+   parameters a node): the median step, device busy, launches a step,
+   peak memory, the JAX CLI's success rule; xlstm-1.3b's cut also one
+   step under ``"polar_fused"`` (its four Stiefel leaves through
+   fused_retract's global route).
 7. Prints the kernel table as one JSON line (``launches`` from the path a
    kernel belongs to, the backward kernel's from the LM training path,
-   fused_retract's twice: its cluster routes from the fair main path, its
-   global route (r > 256) from the ``"polar_fused"`` LM step;
+   fused_retract's four times: its cluster routes from the fair main
+   path, its global route (r > 256) from the ``"polar_fused"`` LM step,
+   and xlstm-1.3b's two leaf shapes from its cut's ``"polar_fused"``
+   step;
    ``path_launches`` from every path), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -475,7 +508,8 @@ def _kernel_split(kernels) -> str:
 
 def run_case(name, calls, plain_calls, gate, costs, label,
              library_calls=None, peak=PEAK_FLOPS, lib_gate=1e-4,
-             chain_calls=None, profile_calls=0):
+             chain_calls=None, profile_calls=0, reps=15,
+             device_calls=DEVICE_CALLS):
     """calls/plain_calls/library_calls: lists of thunks over the same
     inputs, each returning one output or (a grouped call) a list of them,
     the same outputs in the same order in all three; library_calls, where
@@ -486,7 +520,9 @@ def run_case(name, calls, plain_calls, gate, costs, label,
     ``chain_calls``, where given: the calls a fused kernel replaces, timed
     beside it and held to the same gate.  With ``profile_calls``, the
     kernel's (and the library call's) device time a call is also read by
-    :func:`profiled_ms` over that many calls, split by CUDA kernel."""
+    :func:`profiled_ms` over that many calls, split by CUDA kernel.
+    ``reps`` and ``device_calls``: the timed calls of ``ms`` and
+    ``device_ms`` (fewer for a call of a second or so)."""
     import torch
     from repro_torch.obs import estimates as obs_est
     with obs_est.collect() as recorded:
@@ -500,9 +536,9 @@ def run_case(name, calls, plain_calls, gate, costs, label,
               for a, b in zip(outs, want))
     scale = max(float(b.float().abs().max()) for b in want)
     ok, gate_txt = gate(outs, want, err, scale)
-    ms = time_ms(lambda: [c() for c in calls])
-    dev_ms = device_ms(lambda: [c() for c in calls])
-    plain_ms = time_ms(lambda: [p() for p in plain_calls])
+    ms = time_ms(lambda: [c() for c in calls], reps=reps)
+    dev_ms = device_ms(lambda: [c() for c in calls], calls=device_calls)
+    plain_ms = time_ms(lambda: [p() for p in plain_calls], reps=reps)
     library_ms, library_dev_ms, lib_txt = None, None, ""
     if library_calls is not None:
         lib_err = max(float((a.float() - b.float()).abs().max()) for a, b
@@ -654,6 +690,24 @@ def kernel_phase(device="cuda") -> dict:
             rows["fused_retract_global"] = row
         del a, b
     log("  fused_retract: the LM leaves repeat bit for bit")
+    # xlstm-1.3b's Stiefel leaves under "polar_fused", as the step of its
+    # cut to one mLSTM and one sLSTM block calls the kernel on 4 nodes:
+    # wq, wk, wv (4096 x 4096) and w_down (4096 x 2048), both on the
+    # global route; a call takes about a second, so fewer timed calls
+    for shape in ((TRAIN_MODELS_NODES, 4096, 4096),
+                  (TRAIN_MODELS_NODES, 4096, 2048)):
+        a, b = _stiefel_inputs(shape, gen, device)
+        if _rt.cluster_size(shape[-1]) != 0:
+            raise AssertionError(f"fused_retract {shape}: not the global "
+                                 f"route")
+        row = run_case("fused_retract", [lambda: ops.fused_retract(a, b)],
+                       [lambda: ref.fused_retract_ref(a, b)], absolute(5e-5),
+                       [_retract_cost(shape)],
+                       f"xlstm leaf {shape} [global]",
+                       peak=PEAK_FLOPS_TF32X3, profile_calls=1, reps=3,
+                       device_calls=3)
+        rows[f"fused_retract {shape}"] = row
+        del a, b
 
     # -- the library call of the ring mixes: W^k x as one fp32 GEMM per
     # leaf, with W^k taken in float64 and cast, as the dense mix path does
@@ -711,8 +765,8 @@ def kernel_phase(device="cuda") -> dict:
         [_mix_cost(x.shape, K_THEOREM1) for x in xs],
         f"main step k={K_THEOREM1}, 3 calls, 9 leaves",
         library(xs, K_THEOREM1))
-    regs, blocks = _mh.resources(N_NODES)
-    width = _mh.block_width(N_NODES)
+    res = _mh.resources(N_NODES)
+    regs, blocks, width = res["regs"], res["resident"], res["threads"]
     log(f"  multi_hop_mix    register kernel N={N_NODES}: {regs} registers "
         f"a thread, {blocks} blocks of {width} threads per SM = "
         f"{blocks * width // 32} of 64 warps")
@@ -2684,7 +2738,7 @@ def train_phase() -> dict:
 # blocks (``launch.train.reference_config``: zamba2-2.7b's are a Mamba2
 # block, then attention, 2560 wide)
 TRAIN_MODELS_NODES = 4
-TRAIN_MODELS_CUT = {"zamba2-2.7b": 2}
+TRAIN_MODELS_CUT = {"zamba2-2.7b": 2, "xlstm-1.3b": 2}
 
 
 def train_models_phase() -> dict:
@@ -2695,8 +2749,10 @@ def train_models_phase() -> dict:
     plain attention version; then the same configuration on
     TRAIN_MODELS_NODES nodes of TRAIN_BATCH x TRAIN_SEQ tokens
     (:func:`_train_step_profile`: the median step, device busy, launches
-    a step, peak memory, the JAX CLI's success rule).  Returns each
-    recorded run's launch counts."""
+    a step, peak memory, the JAX CLI's success rule), the recurrent ones
+    at their published widths cut to TRAIN_MODELS_CUT blocks, and
+    xlstm-1.3b's cut once more under ``"polar_fused"``.  Returns each
+    recorded run's launch counts, and the ``"polar_fused"`` step's."""
     import gc
 
     import torch
@@ -2752,8 +2808,23 @@ def train_models_phase() -> dict:
             size = (f"published widths cut to {n} blocks: " + ", ".join(
                 b.kind for b in cfg.flat_blocks()))
         per_step, _ = _train_launches(cfg, 1, 0)
-        _train_step_profile(cfg, per_step, steps=5, nodes=TRAIN_MODELS_NODES,
-                            label=f"{arch} ({size})")
+        log(f"  {arch} ({size}): launches a step derived from the code "
+            f"{per_step}")
+        # xlstm's cut takes 3.7 s a "polar" step: fewer timed steps
+        slow = arch == "xlstm-1.3b"
+        _train_step_profile(cfg, per_step, steps=2 if slow else 5,
+                            nodes=TRAIN_MODELS_NODES, label=f"{arch} ({size})",
+                            retract_reps=2 if slow else 5)
+        if arch == "xlstm-1.3b":
+            # its cut also takes a step under "polar_fused": every Stiefel
+            # leaf through fused_retract's global route
+            gc.collect()
+            torch.cuda.empty_cache()
+            per_step, _ = _train_launches(cfg, 1, 0, "polar_fused")
+            paths[f"train {arch} polar_fused"] = _train_step_profile(
+                cfg, per_step, "polar_fused", steps=1,
+                nodes=TRAIN_MODELS_NODES, label=f"{arch} ({size})",
+                retract_reps=2)
         gc.collect()
         torch.cuda.empty_cache()
     return paths
@@ -2761,12 +2832,14 @@ def train_models_phase() -> dict:
 
 def _train_step_profile(cfg, per_step: dict, retraction: str = "polar",
                         steps: int = 10, nodes: int = TRAIN_NODES,
-                        label: str = "full-width") -> dict:
+                        label: str = "full-width",
+                        retract_reps: int = 5) -> dict:
     """(e) The DRSGDA step of ``cfg`` on ``nodes`` nodes of TRAIN_BATCH x
     TRAIN_SEQ tokens at the CLI defaults (its hyper with ``retraction``;
     a frontend's embeddings as the CLI draws them): the median of
     ``steps`` synchronized steps after 3 warm-up steps, the retraction of
-    the Stiefel leaves alone (CUDA events), and one profiled step: device
+    the Stiefel leaves alone (``retract_reps`` CUDA-event timings), and
+    one profiled step: device
     time, busy share, the port's kernels, the top kernels, and its
     launches against ``per_step``; the peak memory of the run; then the
     JAX CLI's success rule at the last state (a finite loss, Stiefel
@@ -2823,7 +2896,7 @@ def _train_step_profile(cfg, per_step: dict, retraction: str = "polar",
         return [m.descent_update(x, x, u, alpha=h.alpha, beta=h.beta,
                                  kind="polar", method=h.invsqrt)
                 for m, x, u in leaves]
-    retract_ms = time_ms(retract, reps=5, warmup=1)
+    retract_ms = time_ms(retract, reps=retract_reps, warmup=1)
     ops.reset_launch_counts()
     own = own_kernels()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2919,43 +2992,6 @@ def _serve(cfg, params, spec, prompts, *, record: bool):
 def _has_moe(cfg) -> bool:
     return any(sp.kind == "moe_attn" for st in cfg.stages
                for sp in st.blocks)
-
-
-def _has_mamba(cfg) -> bool:
-    return any(sp.kind == "mamba" for st in cfg.stages for sp in st.blocks)
-
-
-class _sequential_ssd:
-    """While open, the Mamba2 prefill runs the sequential SSD
-    (``ssm.ssd_reference``, the recurrence a decode step runs) in place of
-    the chunked one."""
-
-    def __enter__(self):
-        from repro_torch.models import ssm
-        self.saved = ssm._ssd_chunked
-        ssm._ssd_chunked = lambda x, b_, c_, dt, la, chunk: \
-            ssm.ssd_reference(x, b_, c_, dt, la)
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.models import ssm
-        ssm._ssd_chunked = self.saved
-
-
-def _zero_mamba_states(tree) -> None:
-    """Zero, in place, every Mamba2 block's ``ssm`` and ``conv`` state in
-    a tree of decode caches."""
-    for key, value in tree.items():
-        if key in ("ssm", "conv"):
-            value.zero_()
-        elif isinstance(value, dict):
-            _zero_mamba_states(value)
-
-
-def _step_gaps(a, b):
-    """Each decode step's largest |a - b| over the batch: a, b (B, steps,
-    ...)."""
-    return (a - b).abs().transpose(0, 1).flatten(1).amax(1)
 
 
 def _gap_list(gaps) -> str:
@@ -3153,15 +3189,42 @@ SERVED_CONTIGUOUS = {"gemma3-27b": (2, 1536, 16),
                      "musicgen-large": (4, 32, 32),
                      "deepseek-v2-236b": (4, 256, 16),
                      "llama-3.2-vision-11b": (2, 512, 16),
-                     "zamba2-2.7b": (2, 1000, 16)}
+                     "zamba2-2.7b": (2, 1000, 16),
+                     "xlstm-1.3b": (2, 1000, 16)}
 GEMMA3_LAYERS = 14
-# zamba2-2.7b's 54-layer decode against its teacher-forced forward, every
-# SSD the sequential one: a fixed gate, five times the 1e-3 that its first
-# supercell holds.  The 54 random-weight layers carry the rounding of the
-# two paths (B = 2 prefill and single-token steps, B = 1 forwards) to
-# 1.552e-03 (H100, PERF.md section 6); zeroing the Mamba2 states moves it
-# past the gate (checked in the same run)
-ZAMBA2_DECODE_TOL = 5e-3
+# The full-depth decode of a recurrent model against its teacher-forced
+# forward, every chunked form the recurrence.  zamba2-2.7b (54 layers): a
+# fixed 5e-3, five times the 1e-3 that its first supercell holds.  The 54
+# random-weight layers carry the rounding of the two paths (B = 2 prefill
+# and single-token steps, B = 1 forwards) to 1.552e-03 (H100, PERF.md
+# section 6).
+DECODE_TOL = {"zamba2-2.7b": 5e-3}
+# xlstm-1.3b (48 layers) is judged against a float64 forward of the same
+# weights on the card, every mLSTM the recurrence (``F64_WITNESS``).  Its
+# fp32 pairs lie about 1e-2 apart (2.405e-02 decode against forward, and
+# 1.6e-02 already at the prefill's last position, where no decode step
+# runs), so no fixed fp32 gate tells rounding from a lost state.  Two
+# gates, both set before the run that first read them (PERF.md section
+# 6):
+#   * float64: the decode from a float64 prefill against the float64
+#     forward within XLSTM_F64_TOL.  The fp32 reading scaled by the unit
+#     roundoffs' ratio (2.405e-02 x 2^-29 = 4.5e-11) is 200 times below;
+#     on the CPU the two agree to 4.4e-16 (SMOKE widths);
+#   * fp32: each fp32 decode no further from the float64 forward than
+#     XLSTM_F32_RATIO times the fp32 forward of its form (the recurrence,
+#     and the chunked mLSTM as served): the served precision no worse
+#     than the forward's.  Both run the same cells; the steps' own fp32
+#     gaps spread 2x over 16 steps, hence the room.
+# Every fault of ``decode_check.FAULTS`` (every state, the conv windows
+# alone, the sLSTM states alone, the last repeat's states alone, zeroed
+# after the prefill) must fail the float64 gate, which sees what fp32
+# rounding hides; the same faults in fp32 are reported beside the fp32
+# bound (on the CPU at d_model 128 the fp32 forward lies 2.4e-03 from
+# float64, 24 times its gap to the fp32 decode, and the card's may lie
+# near a fault's size, so that bound is no fault detector).
+F64_WITNESS = ("xlstm-1.3b",)
+XLSTM_F64_TOL = 1e-8
+XLSTM_F32_RATIO = 3.0
 # deepseek-v2-236b: its dense MLA layer 0 and the first DEEPSEEK_MOE_LAYERS
 # of its 59 MoE layers (about 15.9 GB each in fp32; 2 so that the stacked
 # repeats' loop runs), about 37 GB of weights with the embedding and head
@@ -3186,8 +3249,8 @@ def _served_config(arch: str, smoke: bool = False):
 
 
 def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
-                      n_new: int, tol: float = 1e-3,
-                      chunked_gate: bool = True) -> tuple[dict, dict]:
+                      n_new: int, tol: float | None = 1e-3,
+                      chunked_gate: bool = True) -> tuple[dict, dict, dict]:
     """``launch.serve.generate`` (greedy) of ``batch`` seeded prompts of
     ``prompt_len`` tokens ((B, S, CB) with codebooks; with a frontend,
     each with its seeded embeddings), ``n_new`` tokens: first the same
@@ -3203,20 +3266,24 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
     group, the prefill's last position's against a forward of the prompts
     alone, the same group (a decode step's group of ``batch`` tokens is
     asserted to fit every expert's capacity: no decode step drops a
-    token).  With Mamba2 blocks the prefill and decode steps run once
-    more under the sequential SSD (the recurrence a decode step runs), fed
-    ``generate``'s tokens, against the teacher-forced forward under it;
-    the chunked pair (as served) is held to ``tol`` too unless
-    ``chunked_gate`` is false, and then reported only (at zamba2's 54
-    layers its two forwards lie 6.937e-03 apart, PERF.md section 6); and
-    the same decode with every Mamba2 state zeroed after the prefill must
-    lie past ``tol``, so that the gate sees a lost state."""
+    token).  With recurrent blocks (Mamba2, mLSTM, sLSTM) the prefill and
+    decode steps run once more under the recurrences a decode step runs
+    (``decode_check.sequential_scans``), fed ``generate``'s tokens,
+    against the teacher-forced forward under them; the chunked pair (as
+    served) is held to ``tol`` too unless ``chunked_gate`` is false, and
+    then reported only (at zamba2's 54 layers its two forwards lie
+    6.937e-03 apart, PERF.md section 6); and the same decode after each
+    fault of ``decode_check.faults(cfg)`` (states zeroed after the
+    prefill) must lie past ``tol``, so that the gate sees a lost state.
+    ``tol`` None reports the pairs and leaves the gates to the caller
+    (``_f64_witness``).  Returns the launches, the figures and the
+    readings: the prompts, tokens and logits on the CPU."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.launch import decode_check as dc
     from repro_torch.launch import frontend_embeds
     from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
 
@@ -3233,40 +3300,9 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
                         batch, sp.moe) < batch:
                     raise AssertionError(f"{cfg.name}: a decode step of "
                                          f"{batch} tokens can drop tokens")
-    serve_step = make_serve_step(cfg)
-
-    def decode_logits(feed=None, lose_states=False):
-        """The prefill, then n_new - 1 decode steps, each fed the argmax
-        or, given, ``feed[:, i]``: (B, n_new, [CB,] V) logits, TTFT and
-        the steps' walls.  ``lose_states`` zeroes every Mamba2 block's
-        SSM and conv state after the prefill (a fault for the gate to
-        catch)."""
-        steps, rows = [], []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, _, caches = T.forward(params, cfg, prompts,
-                                      frontend_embeds=fe, mode="prefill",
-                                      cache_len=prompt_len + n_new,
-                                      last_logits_only=True)
-        if lose_states:
-            _zero_mamba_states(caches)
-        tok = logits[:, -1].argmax(-1)
-        rows.append(logits[:, -1].float().cpu())
-        ttft = time.perf_counter() - t0
-        for i in range(n_new - 1):
-            t1 = time.perf_counter()
-            pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
-                             device="cuda")
-            lg, caches = serve_step(params, tok if feed is None
-                                    else feed[:, i], pos, caches,
-                                    frontend_embeds=fe)
-            tok = lg.argmax(-1)
-            rows.append(lg.float().cpu())
-            steps.append(time.perf_counter() - t1)
-        del caches
-        return torch.stack(rows, dim=1), ttft, steps
-
-    loop, ttft, steps = decode_logits()
+    outs, ttft, steps = dc.decode_logits(cfg, params, prompts, n_new,
+                                         frontend_embeds=fe)
+    loop = outs["served"]
 
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -3287,58 +3323,60 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
                 for b in range(batch))
 
     max_err = 0.0
+    readings = {"prompts": prompts, "tokens": tokens, "served": loop}
     if has_moe:
         full, _, _ = T.forward(params, cfg, prompts, frontend_embeds=fe,
                                last_logits_only=True)
-        max_err = float((full[:, -1].float().cpu() - loop[:, 0]).abs().max())
+        max_err = float((full[:, -1].cpu() - loop[:, 0]).abs().max())
         del full
         compared = "the prefill's last position vs a forward of the prompts"
     else:
-        def forced_logits():
-            rows = []
-            for b in range(batch):
-                seq = torch.cat([prompts[b], tokens[b, :-1]])[None]
-                full, _, _ = T.forward(params, cfg, seq, frontend_embeds=None
-                                       if fe is None else fe[b:b + 1])
-                rows.append(full[0, prompt_len - 1:].float().cpu())
-                del full
-            return torch.stack(rows)
-
-        forced = forced_logits()
+        forced = dc.forced_logits(cfg, params, prompts, tokens, fe)
+        readings["forced"] = forced
         max_err = float((forced - loop).abs().max())
         compared = "teacher-forced forward vs every step's logits"
-        if _has_mamba(cfg):
+        if dc.has_recurrent(cfg):
             # the decode recurrence and the conv state held against the
-            # forward with every SSD the recurrence; the chunked pair as
-            # served beside it
-            with _sequential_ssd():
-                seq = forced_logits()
-                seq_loop = decode_logits(tokens)[0]
-                lost = decode_logits(tokens, lose_states=True)[0]
-            gap_q = _step_gaps(seq, seq_loop)
-            gap_c, spread = _step_gaps(forced, loop), _step_gaps(forced, seq)
-            gap_f = _step_gaps(seq, lost)
+            # forward with every SSD and mLSTM the recurrence; the chunked
+            # pair as served beside it
+            faults = dc.faults(cfg)
+            with dc.sequential_scans():
+                seq = dc.forced_logits(cfg, params, prompts, tokens, fe)
+                runs = dc.decode_logits(cfg, params, prompts, n_new,
+                                        feed=tokens, faults=faults,
+                                        frontend_embeds=fe)[0]
+            readings.update(sequential=seq, runs=runs)
+            gap_q = dc.step_gaps(seq, runs["served"])
+            gap_c = dc.step_gaps(forced, loop)
+            spread = dc.step_gaps(forced, seq)
+            lost = {f: dc.step_gaps(seq, runs[f]) for f in faults}
             max_err = float(gap_q.max())
             if chunked_gate:
                 max_err = max(max_err, float(gap_c.max()))
-            if float(gap_f[1:].max()) <= tol:
-                raise AssertionError(
-                    f"generate: with the Mamba2 states zeroed after the "
-                    f"prefill the decode stays within {tol:.0e} of the "
-                    f"forward ({_gap_list(gap_f)}): the gate cannot see a "
-                    f"lost state")
+            if tol is not None:
+                caught = {f: float(g[1:].max()) > tol
+                          for f, g in lost.items()}
+                if not all(caught.values()):
+                    raise AssertionError(
+                        f"generate: with states zeroed after the prefill "
+                        f"the decode stays within {tol:.0e} of the forward "
+                        f"({ {f: _gap_list(g) for f, g in lost.items()} }): "
+                        f"the gate cannot see a lost state")
             compared = (
-                f"under the sequential SSD, teacher-forced forward vs every "
+                f"under the recurrences, teacher-forced forward vs every "
                 f"step's logits {float(gap_q.max()):.3e}, per step "
-                f"{_gap_list(gap_q)}; with the chunked SSD (as served) "
+                f"{_gap_list(gap_q)}; with the chunked forms (as served) "
                 f"{float(gap_c.max()):.3e}, per step {_gap_list(gap_c)} "
-                f"({'gated' if chunked_gate else 'reported, not gated'}); "
-                f"the chunked and sequential forwards apart "
+                f"({'gated' if chunked_gate and tol else 'reported, not gated'}"
+                f"); the chunked and sequential forwards apart "
                 f"{float(spread.max()):.3e}, per step {_gap_list(spread)}; "
-                f"with the Mamba2 states zeroed after the prefill (a fault) "
-                f"{float(gap_f[1:].max()):.3e}, per step {_gap_list(gap_f)}; "
-                f"max |logit| {float(loop.abs().max()):.3f}; gate {tol:.0e}")
-    if max_err > tol:
+                + "; ".join(f"with {f} zeroed after the prefill (a "
+                            f"fault) {float(g[1:].max()):.3e}, per step "
+                            f"{_gap_list(g)}" for f, g in lost.items())
+                + f"; max |logit| {float(loop.abs().max()):.3f}; gate "
+                + (f"{tol:.0e}" if tol is not None
+                   else "against a float64 forward, below"))
+    if tol is not None and max_err > tol:
         raise AssertionError(f"generate: {compared} differ by "
                              f"{max_err:.3e}")
     stats = {"tokens_per_s": batch * n_new / wall, "waves": n_new - 1,
@@ -3354,31 +3392,136 @@ def _serve_contiguous(cfg, params, batch: int, prompt_len: int,
         f"{stats['wave_ms']:.2f} ms (min {1e3 * min(steps):.2f}, max "
         f"{1e3 * max(steps):.2f}); TTFT (prefill and first token) "
         f"{stats['ttft_ms']:.1f} ms; launches {got} (exactly {per_call} "
-        f"per prefill and per step); {compared} max_abs_err={max_err:.3e} "
-        f"(<= {tol:.3e}); tokens = argmax at every one of the {clear} clear "
-        f"choices (of {tokens.numel()})")
-    return got, stats
+        f"per prefill and per step); {compared} max_abs_err={max_err:.3e}"
+        + (f" (<= {tol:.3e})" if tol is not None else "")
+        + f"; tokens = argmax at every one of the {clear} clear choices "
+        f"(of {tokens.numel()})")
+    return got, stats, readings
+
+
+def _f64_witness(cfg, params, readings: dict) -> None:
+    """The decode of a model whose fp32 rounding no fixed gate tells from
+    a lost state, judged against float64 (the gates by ``F64_WITNESS``):
+    the same weights in float64 on the card, every mLSTM and SSD the
+    recurrence, fed the served tokens.  The float64 decode against the
+    float64 forward within XLSTM_F64_TOL; each fp32 decode of
+    ``_serve_contiguous`` (from the recurrent prefill, and as served)
+    against the float64 forward within XLSTM_F32_RATIO times its fp32
+    forward's gap (the recurrence, the chunked form); each fault of
+    ``decode_check.faults`` past the float64 gate, and reported in fp32
+    beside the fp32 bound."""
+    import torch
+    from repro_torch.launch import decode_check as dc
+    from repro_torch.tree import tree_map
+
+    prompts, tokens = readings["prompts"], readings["tokens"]
+    faults = dc.faults(cfg)
+    t0 = time.perf_counter()
+    p64 = tree_map(lambda t: t.double(), params)
+    with dc.sequential_scans():
+        ref = dc.forced_logits(cfg, p64, prompts, tokens)
+        runs = dc.decode_logits(cfg, p64, prompts, tokens.shape[1],
+                                feed=tokens, faults=faults)[0]
+    del p64
+    torch.cuda.empty_cache()
+    if ref.dtype != torch.float64:
+        raise AssertionError(f"the float64 forward returned {ref.dtype}")
+    wall = time.perf_counter() - t0
+    gap64 = dc.step_gaps(ref, runs["served"])
+    lost64 = {f: float(dc.step_gaps(ref, runs[f])[1:].max()) for f in faults}
+    fwd32 = float(dc.step_gaps(ref, readings["sequential"]).max())
+    chunk32 = float(dc.step_gaps(ref, readings["forced"]).max())
+    f32 = readings["runs"]
+    dec32 = float(dc.step_gaps(ref, f32["served"]).max())
+    served32 = float(dc.step_gaps(ref, readings["served"]).max())
+    lost32 = {f: float(dc.step_gaps(ref, f32[f])[1:].max()) for f in faults}
+    bound32 = XLSTM_F32_RATIO * fwd32
+    line = (f"  {cfg.name} against a float64 forward (every mLSTM the "
+            f"recurrence; {wall:.1f} s): float64 decode "
+            f"{float(gap64.max()):.3e}, per step {_gap_list(gap64)} (<= "
+            f"{XLSTM_F64_TOL:.0e}); fp32 forwards: recurrence {fwd32:.3e}, "
+            f"chunked {chunk32:.3e}; fp32 decodes: from the recurrent "
+            f"prefill {dec32:.3e} (<= {XLSTM_F32_RATIO:g} x {fwd32:.3e} = "
+            f"{bound32:.3e}), as served {served32:.3e} (<= "
+            f"{XLSTM_F32_RATIO:g} x {chunk32:.3e} = "
+            f"{XLSTM_F32_RATIO * chunk32:.3e}); faults, float64 (> "
+            f"{XLSTM_F64_TOL:.0e}) / fp32 (reported; bound {bound32:.3e}): "
+            + ", ".join(f"{f} {lost64[f]:.3e} / {lost32[f]:.3e}"
+                        for f in faults)
+            + f"; max |logit| {float(ref.abs().max()):.3f}")
+    log(line)
+    missed = []
+    if not float(gap64.max()) <= XLSTM_F64_TOL:
+        missed.append("the float64 decode")
+    if not dec32 <= bound32:
+        missed.append("the fp32 decode from the recurrent prefill")
+    if not served32 <= XLSTM_F32_RATIO * chunk32:
+        missed.append("the fp32 decode as served")
+    missed += [f"the fault '{f}' passes the float64 gate" for f in faults
+               if not lost64[f] > XLSTM_F64_TOL]
+    if missed:
+        raise AssertionError(f"{cfg.name} against float64: "
+                             + "; ".join(missed))
+
+
+def _xlstm_serve_bounds(cfg, params, batch: int, prompt_len: int) -> str:
+    """The least times of xlstm-1.3b's serving on the card: a decode step
+    moves every weight but the embedding table once (two of its rows) and
+    reads and writes every mLSTM state {C, n, m} (fp32), at 3.35 TB/s; the
+    prefill's products (every block's matrices and the head's last
+    position, 2 flops a weight a token, and the chunked mLSTM's per chunk
+    and head: q k^T, the scores by v and by k, 2 L^2 dk each; q C and the
+    state's update, 2 L dk^2 each; the sequence padded to whole chunks)
+    at 67 TFLOP/s (fp32, TF32 off)."""
+    from repro_torch.models import xlstm
+    from repro_torch.tree import tree_leaves
+
+    weights = sum(t.numel() for t in tree_leaves(params)) \
+        - params["embed"].numel()
+    blocks = [sp for st in cfg.stages for sp in st.blocks * st.repeat]
+    n_m = sum(sp.kind == "mlstm" for sp in blocks)
+    spec = next(sp.xlstm for sp in blocks if sp.kind == "mlstm")
+    _, h, dk = xlstm._mdims(cfg, spec)
+    state = n_m * batch * h * (dk * dk + dk + 1) * 4
+    step_ms = 1e3 * (weights * 4 + 2 * state) / PEAK_BYTES
+    dense = weights - params["lm_head"].numel() - cfg.d_model * (
+        1 + len(blocks))
+    ell = min(spec.chunk, prompt_len)
+    chunks = -(-prompt_len // ell)
+    flops = (2 * dense * batch * prompt_len
+             + 2 * params["lm_head"].numel() * batch
+             + n_m * batch * h * chunks * (6 * ell * ell * dk
+                                           + 4 * ell * dk * dk))
+    return (f"bounds: a decode step moves {weights * 4 / 1e9:.2f} GB of "
+            f"weights and reads and writes {state / 1e9:.2f} GB of mLSTM "
+            f"state ({n_m} layers x {batch} sequences), at least "
+            f"{step_ms:.2f} ms at 3.35 TB/s; the prefill's products "
+            f"{flops / 1e12:.2f} TFLOP, at least "
+            f"{1e3 * flops / PEAK_FLOPS:.1f} ms at 67 TFLOP/s fp32")
 
 
 def serve_models_phase() -> dict:
     """Every other served configuration at its published widths
     (SERVED_PAGED, SERVED_CONTIGUOUS), one at a time, freed before the
     next; per model its launches, figures and peak memory (while serving,
-    and during init).  zamba2-2.7b first at its published widths cut to
-    its first supercell (5 Mamba2 layers and attention), held to the
-    teacher-forced forward within 1e-3 with the chunked SSD and with the
-    sequential one; at 54 layers with the sequential one within
-    ``ZAMBA2_DECODE_TOL`` (the chunked pair reported).  Returns each
-    model's serving launches."""
+    and during init).  The recurrent ones (zamba2-2.7b, xlstm-1.3b) first
+    at their published widths cut to their first supercell (5 Mamba2
+    layers and attention; 7 mLSTM layers and an sLSTM layer), held to the
+    teacher-forced forward within 1e-3 with the chunked forms and with the
+    recurrences; at full depth zamba2-2.7b's 54 layers with the
+    recurrences within ``DECODE_TOL`` (the chunked pair reported) and
+    xlstm-1.3b's 48 against float64 (``_f64_witness``), with its bounds.
+    Returns each model's serving launches."""
     import gc
 
     import torch
     from repro_torch import configs
+    from repro_torch.launch.decode_check import has_recurrent
 
     paths = {}
     for arch in (*SERVED_PAGED, *SERVED_CONTIGUOUS):
         cfg = _served_config(arch)
-        if _has_mamba(cfg):
+        if has_recurrent(cfg):
             cell = dataclasses.replace(
                 cfg, name=f"{cfg.name} (cut to its first supercell)",
                 stages=configs.patterned_stages(cfg.stages[0].blocks,
@@ -3399,14 +3542,22 @@ def serve_models_phase() -> dict:
         if arch in SERVED_PAGED:
             got, stats = _serve_paged(cfg, params)
         else:
-            got, stats = _serve_contiguous(
+            got, stats, readings = _serve_contiguous(
                 cfg, params, *SERVED_CONTIGUOUS[arch],
-                **({"tol": ZAMBA2_DECODE_TOL, "chunked_gate": False}
-                   if _has_mamba(cfg) else {}))
+                **({"tol": DECODE_TOL[arch], "chunked_gate": False}
+                   if arch in DECODE_TOL else {"tol": None}
+                   if arch in F64_WITNESS else {}))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"  {cfg.name}: peak memory serving {peak:.2f} GiB (init "
             f"{init_peak:.2f} GiB); "
             f"{json.dumps({k: round(v, 4) for k, v in stats.items()})}")
+        if arch in F64_WITNESS:
+            _f64_witness(cfg, params, readings)
+            del readings
+        if arch == "xlstm-1.3b":
+            log(f"  {cfg.name}: "
+                + _xlstm_serve_bounds(cfg, params,
+                                      *SERVED_CONTIGUOUS[arch][:2]))
         paths[f"serving {arch}"] = got
         del params
     gc.collect()
@@ -3646,6 +3797,77 @@ def ssd_phase() -> None:
                              f"{card64:.3e} CPU {cpu64:.3e}")
 
 
+# the mLSTM at xlstm-1.3b's full width: B, S (4 chunks of 256, the last
+# padded), H, dk; the CPU's recurrence over the first chunk only (50 s of
+# host time over all of S)
+MLSTM_SHAPE, MLSTM_CHUNK = (2, 1000, 4, 1024), 256
+
+
+def mlstm_phase() -> None:
+    """The mLSTM cell (plain PyTorch, as it is plain ``jnp`` in the JAX
+    package) at xlstm-1.3b's full width, TF32 off: the chunked form
+    (``xlstm._mlstm_chunked``) and the recurrence a decode step runs
+    (``xlstm.mlstm_reference``) on the same seeded fp32 inputs (drawn as
+    the JAX test draws them, k scaled by dk^-1/2 as the model scales it)
+    on the card and on the CPU, each against the recurrence in float64
+    on the card: over all of S the card's two forms and the CPU's chunked
+    form, over the first chunk (MLSTM_CHUNK positions, where every form
+    reads the same inputs) all four, the CPU's recurrence among them.
+    Reports every gap and the largest |y|, and times both forms on the
+    card: no gate, as the chunked form is the JAX package's (its own test
+    allows 2e-3 between the two); only a non-finite output fails."""
+    import numpy as np
+    import torch
+    from repro_torch.models import xlstm
+
+    b, s, h, dk = MLSTM_SHAPE
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((b, s, h, dk), dtype=np.float32)
+               for _ in range(3))
+    k = (k * dk ** -0.5).astype(np.float32)
+    li = (2.0 * rng.standard_normal((b, s, h))).astype(np.float32)
+    lf = (-np.logaddexp(0.0, -(rng.standard_normal((b, s, h)) + 2.0))
+          ).astype(np.float32)
+    host = [torch.from_numpy(a) for a in (q, k, v, li, lf)]
+    card = [a.to("cuda") for a in host]
+    y = xlstm._mlstm_chunked(*card, MLSTM_CHUNK)[0]
+    chunked_ms = time_ms(lambda: xlstm._mlstm_chunked(*card, MLSTM_CHUNK),
+                         reps=5, warmup=1)
+    y0 = xlstm.mlstm_reference(*card)[0]
+    seq_ms = time_ms(lambda: xlstm.mlstm_reference(*card), reps=2, warmup=1)
+    y64 = xlstm.mlstm_reference(*(a.double() for a in card))[0].cpu()
+    y, y0 = y.cpu(), y0.cpu()
+    t0 = time.perf_counter()
+    y_cpu = xlstm._mlstm_chunked(*host, MLSTM_CHUNK)[0]
+    cpu_chunked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    y0_cpu = xlstm.mlstm_reference(*(a[:, :MLSTM_CHUNK] for a in host))[0]
+    cpu_seq_s = time.perf_counter() - t0
+    outs = {"chunked card": y, "recurrence card": y0, "chunked CPU": y_cpu}
+    if not all(bool(torch.isfinite(t).all())
+               for t in (*outs.values(), y0_cpu, y64)):
+        raise AssertionError("mLSTM at full width: a non-finite output")
+    gaps = {name: float((t.double() - y64).abs().max())
+            for name, t in outs.items()}
+    first = dict(outs, **{"recurrence CPU": y0_cpu})
+    head = {name: float((t[:, :MLSTM_CHUNK].double()
+                         - y64[:, :MLSTM_CHUNK]).abs().max())
+            for name, t in first.items()}
+    log(f"  mLSTM (B, S, H, dk) = {MLSTM_SHAPE}, chunk {MLSTM_CHUNK} (S "
+        f"padded to {-(-s // MLSTM_CHUNK) * MLSTM_CHUNK}), fp32: max |y| "
+        f"{float(y64.abs().max()):.3f}; chunked vs recurrence on the card "
+        f"{float((y - y0).abs().max()):.3e}; card vs CPU chunked "
+        f"{float((y - y_cpu).abs().max()):.3e}; vs float64, all of S: "
+        + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items())
+        + f"; the first {MLSTM_CHUNK} positions (max |y| "
+        f"{float(y64[:, :MLSTM_CHUNK].abs().max()):.3f}): "
+        + ", ".join(f"{n} {g:.3e}" for n, g in head.items())
+        + f"; on the card chunked {chunked_ms:.3f} ms, recurrence "
+        f"{seq_ms:.3f} ms (CUDA events); on the CPU chunked "
+        f"{cpu_chunked_s:.2f} s, recurrence over {MLSTM_CHUNK} positions "
+        f"{cpu_seq_s:.2f} s (reported, not gated)")
+
+
 # the replica sync: smollm-135m at its published widths, REPLICAS copies,
 # perturbed by REPLICA_NOISE, then REPLICA_ROUNDS EF-int8 rounds of k = 2
 REPLICAS, REPLICA_NOISE, REPLICA_ROUNDS = 4, 0.02, 4
@@ -3744,6 +3966,61 @@ def contracts_phase() -> None:
             str(f) for f in findings[:5]))
 
 
+def analysis_phase() -> None:
+    """The analysis CLI on the card (``python -m repro_torch.analysis``,
+    in process: every pass, the attention tile plans and the Hopper
+    budgets included) must exit 0 with no finding, and ``--selftest`` must
+    see every fixture fire; then the attention forward's plans by route
+    (``kernel_check.attention_plans``), and each
+    kernel's resources over the launch configurations of the budget pass
+    (``kernel_check.budget_records``): registers a thread, shared memory a
+    block and resident blocks (clusters, for a cluster launch) at the
+    least and most of its cases."""
+    import contextlib
+    import io
+
+    from repro_torch.analysis import kernel_check
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    for argv in ([], ["--selftest"]):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = analysis_main(argv)
+        text = out.getvalue().strip().replace("\n", " | ")
+        log(f"  python -m repro_torch.analysis {' '.join(argv)}: exit "
+            f"{code} in {time.perf_counter() - t0:.1f} s: {text}")
+        if code != 0:
+            raise AssertionError(f"analysis CLI {argv}: exit {code}")
+    limit = kernel_check.smem_limit()
+    plans = kernel_check.attention_plans()
+    for route in dict.fromkeys(p["route"] for p in plans):
+        ps = [p for p in plans if p["route"] == route]
+        log(f"  attention plans, {route}: {len(ps)} cases (ragged S, "
+            f"head dims {sorted({p['case'].split()[1] for p in ps})}), "
+            f"query rows a block {min(p['rows'] for p in ps)}-"
+            f"{max(p['rows'] for p in ps)}, "
+            f"{'key rows' if route == 'simt' else 'warps across the keys'} "
+            f"{min(p['split'] for p in ps)}-{max(p['split'] for p in ps)}, "
+            f"{max(p['bytes'] for p in ps)} bytes at most")
+    records = kernel_check.budget_records()
+    log(f"  budget pass: {len(records)} launch configurations, shared "
+        f"memory limit {limit} bytes a block (the card's opt-in)")
+    for kernel in dict.fromkeys(r["kernel"] for r in records):
+        rs = [r for r in records if r["kernel"] == kernel]
+        smem = [r["static_smem"] + r["dyn_smem"] for r in rs]
+        most = max(rs, key=lambda r: r["regs"])
+        log(f"    {kernel:20s} {len(rs):3d} cases: registers a thread "
+            f"{min(r['regs'] for r in rs)}-{most['regs']} (most at "
+            f"{most['case']}, {most['threads']} threads), local bytes a "
+            f"thread <= {max(r['local_bytes'] for r in rs)}, shared memory "
+            f"{min(smem)}-{max(smem)} bytes, resident "
+            f"{min(r['resident'] for r in rs)}-"
+            f"{max(r['resident'] for r in rs)} (blocks an SM; clusters the "
+            f"card where the cluster > 1: "
+            f"{sorted({r['cluster'] for r in rs})})")
+
+
 def main() -> int:
     try:
         import torch
@@ -3758,6 +4035,11 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+
+    t_start = time.perf_counter()
+
+    def phase(title: str) -> None:
+        log(f"{title} (at {time.perf_counter() - t_start:.0f} s)")
 
     card = card_line()
     log(f"card: {card}")
@@ -3774,29 +4056,33 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{n} {s:.1f} s' for n, s in per.items())})")
 
-    log("kernel phase:")
+    phase("kernel phase:")
     rows = kernel_phase()
     rows.update(attention_kernel_phase())
     rows.update(attention_backward_phase())
-    log("SSD at zamba2-2.7b's width:")
+    phase("SSD at zamba2-2.7b's width:")
     ssd_phase()
-    log("geometries:")
+    phase("mLSTM at xlstm-1.3b's width:")
+    mlstm_phase()
+    phase("geometries:")
     geometry_phase()
-    log("numerical contracts:")
+    phase("numerical contracts:")
     contracts_phase()
-    log("main path:")
+    phase("analysis CLI and the kernels' Hopper budgets:")
+    analysis_phase()
+    phase("main path:")
     paths = main_path_phase()
-    log("figures:")
+    phase("figures:")
     paths["figures"] = figures_phase()
-    log("robust PCA:")
+    phase("robust PCA:")
     paths["robust_pca"] = robust_pca_phase()
-    log("DRO:")
+    phase("DRO:")
     paths["dro"] = dro_phase()
-    log("elastic:")
+    phase("elastic:")
     paths["elastic"] = elastic_phase()
-    log("obs:")
+    phase("obs:")
     paths["obs"] = obs_phase(rows)
-    log("profile:")
+    phase("profile:")
     from repro_torch.launch.fair import COMM_PRESETS
     int8 = COMM_PRESETS["int8_ef"]
     # the main paths at 28x28, then every method of Figs. 1-2 as the
@@ -3821,20 +4107,20 @@ def main() -> int:
         "DRO drsgda": StepConfig("drsgda", False, setup=_dro_setup),
         "elastic leave_rejoin k=1": StepConfig("drgda", True,
                                                setup=_elastic_setup)})
-    log("agreement:")
+    phase("agreement:")
     agreement_phase()
     # after the profile phase: its walls come before any profiler session
-    log("serving path:")
+    phase("serving path:")
     paths["serving"] = serve_phase()
-    log("served configurations at their published widths:")
+    phase("served configurations at their published widths:")
     paths.update(serve_models_phase())
     serve_agreement_phase()
-    log("replica sync:")
+    phase("replica sync:")
     paths["replica"] = replica_phase()
     # last: its full-width states take half the card's memory
-    log("LM training:")
+    phase("LM training:")
     paths["train"], paths["train_polar_fused"] = train_phase()
-    log("LM training, the other configurations:")
+    phase("LM training, the other configurations:")
     paths.update(train_models_phase())
 
     # each kernel's launches come from the path it belongs to; every path's
@@ -3844,18 +4130,26 @@ def main() -> int:
             "train" if name in TRAIN_PATH else "serving"
             for name in KERNEL_META}
     table = []
-    # fused_retract has two rows: its cluster routes (r <= 256, the fair
-    # main path) and its global route (r > 256: smollm-135m's wq / wo under
-    # "polar_fused", whose step's launches of that route it reports)
-    variants = [(name, name, home[name], name) for name in KERNEL_META]
-    variants.insert(2, ("fused_retract", "fused_retract_global",
-                        "train_polar_fused", "fused_retract_global"))
-    for name, key, path, count in variants:
+    # fused_retract has four rows: its cluster routes (r <= 256, the fair
+    # main path), its global route (r > 256: smollm-135m's wq / wo under
+    # "polar_fused", whose step's launches of that route it reports) and
+    # xlstm-1.3b's leaves on that route (the launches of its cut's
+    # "polar_fused" step)
+    variants = [(name, name, home[name], name, None) for name in KERNEL_META]
+    variants[1] = ("fused_retract", "fused_retract", "full", "fused_retract",
+                   "cluster routes (r <= 256)")
+    xlstm_path = "train xlstm-1.3b polar_fused"
+    variants[2:2] = [
+        ("fused_retract", "fused_retract_global", "train_polar_fused",
+         "fused_retract_global", "global route (r > 256)"),
+        *(("fused_retract", f"fused_retract {shape}", xlstm_path,
+           "fused_retract_global", f"global route, xlstm-1.3b {shape}")
+          for shape in ((TRAIN_MODELS_NODES, 4096, 4096),
+                        (TRAIN_MODELS_NODES, 4096, 2048)))]
+    for name, key, path, count, variant in variants:
         source, replaces = KERNEL_META[name]
         row = rows[key]
-        extra = ({"variant": "global route (r > 256)"} if key != name else
-                 {"variant": "cluster routes (r <= 256)"}
-                 if name == "fused_retract" else {})
+        extra = {"variant": variant} if variant else {}
         table.append({"name": name, **extra, "route": "cuda",
                       "source": source, "replaces": replaces,
                       "launches": paths[path][count],
@@ -3870,6 +4164,7 @@ def main() -> int:
                       "chain_device_ms": row["chain_device_ms"],
                       "path_launches": {p: counts.get(count, 0)
                                         for p, counts in paths.items()}})
+    phase("kernel table:")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

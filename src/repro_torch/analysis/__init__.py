@@ -1,12 +1,13 @@
 """Static and numerical checks of the port (``src/repro/analysis``).
 
-Ported so far: :mod:`~repro_torch.analysis.contracts`, the numerical
-contracts (doubly-stochastic W_t of every channel and elastic round,
-feasibility of every registered manifold's retractions), and the
-:class:`Finding` record its validators return.  The JAX package's jaxpr
-lint, kernel check, entry-point passes and CLI (``jaxpr_lint``,
-``kernel_check``, ``entrypoints``, ``__main__``) are ROADMAP queue 1,
-item 8.
+Ported: :mod:`~repro_torch.analysis.contracts`, the numerical contracts
+(doubly-stochastic W_t of every channel and elastic round, feasibility of
+every registered manifold's retractions); :mod:`~repro_torch.analysis.
+kernel_check` (oracle coverage, launch arithmetic, the Hopper budgets of
+every CUDA kernel); the pass registry :mod:`~repro_torch.analysis.
+entrypoints` and the CLI ``python -m repro_torch.analysis``; and the
+:class:`Finding` record every validator returns.  The JAX package's jaxpr
+lint (``jaxpr_lint``) and the passes that run it are ROADMAP queue 1.
 """
 from __future__ import annotations
 

@@ -3,16 +3,17 @@
 The port's own copy of the JAX package's ``configs/base.py`` (whose
 package ``__init__`` imports JAX), cut to the fields the transformer, the
 MoE layer, the paged KV cache, the serving path, the LM objective and the
-trainer read, and the Mamba2 block's :class:`SSMSpec`.  Field names,
-defaults and meanings are the reference's.  The stubbed modality
+trainer read, the Mamba2 block's :class:`SSMSpec` and the xLSTM cells'
+:class:`XLSTMSpec`.  Field names, defaults and meanings are the
+reference's.  The stubbed modality
 frontend (:class:`FrontendSpec`, ``ModelConfig.frontend``) is carried
 over: a model with one takes precomputed embeddings, which its
-cross-attention layers read.  Not carried over: the xLSTM block spec,
-the TPU-only fields (``mesh_plan``, ``use_scan``, ``dtype``), and
-of :class:`MoESpec` the two knobs that only place the dispatch on a TPU
-mesh (``dispatch_spmd_axis``, ``expert_shard_axis``; ``dispatch_groups``
+cross-attention layers read.  Not carried over: the TPU-only fields
+(``mesh_plan``, ``use_scan``, ``dtype``), and of :class:`MoESpec` the
+two knobs that only place the dispatch on a TPU mesh
+(``dispatch_spmd_axis``, ``expert_shard_axis``; ``dispatch_groups``
 stays: it sets the capacity per group, so it changes the numbers).  A
-block kind the port does not run yet is refused where it is built
+block kind the port does not know is refused where it is built
 (``models/transformer.py``).
 """
 from __future__ import annotations
@@ -62,13 +63,24 @@ class SSMSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMSpec:
+    """mLSTM / sLSTM cells (xLSTM)."""
+    proj_factor: float = 2.0       # mLSTM up-projection
+    conv_window: int = 4
+    chunk: int = 256
+    slstm_proj_factor: float = 4.0 / 3.0
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSpec:
     kind: BlockKind = "attn"
     attn: Optional[AttnSpec] = None
     moe: Optional[MoESpec] = None      # the routed FFN of a "moe_attn" block
     ssm: Optional[SSMSpec] = None      # the Mamba2 mixer of a "mamba" block
-    has_mlp: bool = True               # dense SwiGLU MLP (ignored for moe
-    #                                    and mamba)
+    xlstm: Optional[XLSTMSpec] = None  # the cell of an "mlstm" / "slstm"
+    #                                    block
+    has_mlp: bool = True               # dense SwiGLU MLP (ignored for moe,
+    #                                    mamba and xlstm)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -90,12 +90,15 @@ def comm_state_to_reference(state) -> tuple[dict, dict | None]:
 
 
 def tree_from_reference(tree, device, dtype=None):
-    """A nested dict of the JAX package's arrays (parameters, caches,
-    pools) as tensors on ``device``, copied leaf for leaf, in ``dtype``
-    (a NumPy dtype; default: each leaf's own)."""
+    """A nested dict (or tuple: the sLSTM state) of the JAX package's
+    arrays (parameters, caches, pools) as tensors on ``device``, copied
+    leaf for leaf, in ``dtype`` (a NumPy dtype; default: each leaf's
+    own)."""
     if isinstance(tree, dict):
         return {k: tree_from_reference(v, device, dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_from_reference(v, device, dtype) for v in tree)
     return torch.from_numpy(np.array(tree, dtype=dtype)).to(device)
 
 
@@ -103,6 +106,8 @@ def tree_to_reference(tree):
     """The inverse of :func:`tree_from_reference`, as NumPy arrays."""
     if isinstance(tree, dict):
         return {k: tree_to_reference(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_to_reference(v) for v in tree)
     return tree.detach().cpu().numpy()
 
 
@@ -142,17 +147,23 @@ def lm_batch_to_torch(batch: dict, device) -> dict:
 def lm_params_from_seed(cfg, seed: int) -> dict:
     """One node's transformer parameters (``"attn"`` and ``"moe_attn"``
     blocks with GQA or MLA attention and cross-attention sublayers,
-    ``"mamba"`` blocks, one token stream or ``n_codebooks``, a frontend
-    projection) in the JAX package's layout, as float32 NumPy arrays drawn
-    from ``numpy.random.default_rng(seed)``, each leaf at its JAX
-    initializer's scale (``src/repro/models/layers.py``, ``attention.py``,
-    ``moe.py``, ``ssm.py``): embeddings N(0, 0.02^2), dense weights (MLA's
-    down projections, ``frontend_proj`` and Mamba2's ``in_proj`` and
-    ``out_proj`` among them) and expert weights N(0, 1/d_in), Mamba2's
-    causal conv N(0, 1/width), its ``a_log`` ``log(linspace(1, 16, H))``,
-    ``d_skip`` ones and ``dt_bias`` zeros, the MoE router N(0, 0.02^2),
+    ``"mamba"``, ``"mlstm"`` and ``"slstm"`` blocks, one token stream or
+    ``n_codebooks``, a frontend projection) in the JAX package's layout,
+    as float32 NumPy arrays drawn from ``numpy.random.default_rng(seed)``,
+    each leaf at its JAX initializer's scale
+    (``src/repro/models/layers.py``, ``attention.py``, ``moe.py``,
+    ``ssm.py``, ``xlstm.py``): embeddings N(0, 0.02^2), dense weights
+    (MLA's down projections, ``frontend_proj``, Mamba2's ``in_proj`` and
+    ``out_proj``, the mLSTM's ``w_up`` and the sLSTM's ``w_in``,
+    ``w_ff_gate`` and ``w_ff_down`` among them) and expert weights
+    N(0, 1/d_in), the causal convs N(0, 1/width), Mamba2's ``a_log``
+    ``log(linspace(1, 16, H))``, ``d_skip`` ones and ``dt_bias`` zeros,
+    the mLSTM's gate weights ``w_if`` N(0, 0.02^2) and ``if_bias`` [0]*H +
+    [3]*H, the sLSTM's recurrent ``r`` (H, dh, 4 dh) N(0, 1/dh) and
+    ``bias`` [0]*d + [3]*d + [0]*2d, the MoE router N(0, 0.02^2),
     attention projections (MLA's up projections, the
-    cross-attention's ``wk_x``, ``wv_x``) orthonormal (the Q factor of a
+    cross-attention's ``wk_x``, ``wv_x``) and the mLSTM's Stiefel leaves
+    ``wq``, ``wk``, ``wv`` and ``w_down`` orthonormal (the Q factor of a
     Gaussian, transposed for a wide matrix), norm scales ones; stacked
     repeats on a leading axis, codebooks on a leading (CB, ...) axis.  Not
     the JAX package's draws (those come from ``jax.random``): both
@@ -220,12 +231,40 @@ def lm_params_from_seed(cfg, seed: int) -> dict:
                 "norm": {"scale": np.ones(d_inner, np.float32)},
                 "out_proj": normal((d_inner, d), d_inner ** -0.5)}
 
+    def mlstm(spec):
+        d_inner = int(d * spec.proj_factor)
+        h = cfg.n_heads
+        return {"w_up": normal((d, 2 * d_inner), d ** -0.5),
+                "conv": {"w": normal((spec.conv_window, d_inner),
+                                     spec.conv_window ** -0.5)},
+                "wq": orthogonal(d_inner, d_inner),
+                "wk": orthogonal(d_inner, d_inner),
+                "wv": orthogonal(d_inner, d_inner),
+                "w_if": normal((d_inner, 2 * h), 0.02),
+                "if_bias": np.repeat(np.float32([0.0, 3.0]), h),
+                "norm": {"scale": np.ones(d_inner, np.float32)},
+                "w_down": orthogonal(d_inner, d)}
+
+    def slstm(spec):
+        h = cfg.n_heads
+        dh, d_ff = d // h, int(d * spec.slstm_proj_factor)
+        return {"w_in": normal((d, 4 * d), d ** -0.5),
+                "r": normal((h, dh, 4 * dh), dh ** -0.5),
+                "bias": np.repeat(np.float32([0.0, 3.0, 0.0, 0.0]), d),
+                "norm": {"scale": np.ones(d, np.float32)},
+                "w_ff_gate": normal((d, d_ff), d ** -0.5),
+                "w_ff_down": normal((d_ff, d), d_ff ** -0.5)}
+
+    mixers = {"mamba": lambda sp: mamba(sp.ssm),
+              "mlstm": lambda sp: mlstm(sp.xlstm),
+              "slstm": lambda sp: slstm(sp.xlstm)}
+
     def block(spec):
-        if spec.kind == "mamba":
+        if spec.kind in mixers:
             return {"ln1": {"scale": np.ones(d, np.float32)},
-                    "mamba": mamba(spec.ssm)}
+                    spec.kind: mixers[spec.kind](spec)}
         if spec.kind not in ("attn", "moe_attn"):
-            raise NotImplementedError(f"block {spec} is not ported yet")
+            raise ValueError(f"unknown block kind {spec.kind!r}")
         p = {"ln1": {"scale": np.ones(d, np.float32)},
              "attn": mla(spec.attn) if spec.attn.kind == "mla"
              else gqa(spec.attn)}

@@ -5,7 +5,10 @@ plain C interface, ``build/kernels/<name>-<digest>.so`` at the repository
 root (``build/`` is git-ignored).  The digest covers the sources and the
 flags, so an edited kernel is rebuilt at its first use and a stale library
 is never loaded.  :func:`build` compiles every missing library with one
-``nvcc`` process per source, all started together.
+``nvcc`` process per source, all started together.  Every library also
+exports ``repro_<kernel>_resources``, which :func:`resources` reads: the
+registers, shared memory and residency of a kernel at a launch
+configuration, for the budget pass of ``analysis/kernel_check.py``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -96,6 +99,29 @@ def library(name: str) -> ctypes.CDLL:
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+class Resources(ctypes.Structure):
+    """``ReproResources`` of ``csrc/common.cuh``: one kernel's resources at
+    one launch configuration, as the card reports them."""
+    _fields_ = [(f, ctypes.c_int) for f in (
+        "regs", "local_bytes", "static_smem", "dyn_smem", "threads",
+        "cluster", "resident")]
+
+
+def resources(name: str, entry: str, *args: int) -> dict:
+    """What ``entry`` (a ``repro_*_resources`` function of kernel library
+    ``name``) reports for the integer arguments ``args``: registers a
+    thread, local bytes a thread, static and dynamic shared memory a
+    block, threads a block, blocks a cluster, and the blocks an SM (no
+    cluster) or clusters the card (a cluster) holds at once.  Raises if
+    the card refuses the configuration."""
+    fn = getattr(library(name), entry)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(Resources)]
+    fn.restype = ctypes.c_int
+    out = Resources()
+    check(name, fn(*args, ctypes.byref(out)))
+    return {f: getattr(out, f) for f, _ in Resources._fields_}
 
 
 def check(name: str, code: int) -> None:

@@ -293,17 +293,41 @@ __global__ void __launch_bounds__(kThreads)
           t.m[r] + logf(fmaxf(t.l[r], FLT_MIN));
 }
 
+// Query rows R a block (the smallest power of two >= S, at most 64, halved
+// while no key tile fits) and key rows BK (key_tile); BK is 0 if none fits.
+inline void plan(int S, int hd, int hdv, int* R, int* BK) {
+  *R = 64;
+  while (*R > 1 && *R / 2 >= S) *R /= 2;
+  while ((*BK = key_tile(*R, hd, hdv)) == 0 && *R > 1) *R /= 2;
+}
+
+// The plan as (route 0, R, BK, bytes) for repro_flash_attention_plan.
+inline void plan_record(int S, int hd, int hdv, long long* out) {
+  int R, BK;
+  plan(S, hd, hdv, &R, &BK);
+  out[0] = 0;
+  out[1] = R;
+  out[2] = BK;
+  out[3] = BK ? (long long)smem_bytes(R, BK, hd, hdv) : 0;
+}
+
+template <typename T>
+int resources(int S, int hd, int hdv, ReproResources* out) {
+  int R, BK;
+  plan(S, hd, hdv, &R, &BK);
+  if (BK == 0) return (int)cudaErrorInvalidValue;
+  return repro_resources(&flash_kernel<T>, kThreads,
+                         smem_bytes(R, BK, hd, hdv), 1, out);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
            const int* kpos, void* out, float* lse, int B, int S, int Tk,
            int H, int Hkv, int hd, int hdv, float scale, int causal,
            int window, cudaStream_t st) {
   static bool smem_set = false;
-  // query rows per block: the smallest power of two >= S, at most 64
-  int R = 64;
-  while (R > 1 && R / 2 >= S) R /= 2;
-  int BK;
-  while ((BK = key_tile(R, hd, hdv)) == 0 && R > 1) R /= 2;
+  int R, BK;
+  plan(S, hd, hdv, &R, &BK);
   if (BK == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = attn::allow_smem(flash_kernel<T>, &smem_set);
   if (err != cudaSuccess) return (int)err;
@@ -838,18 +862,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   }
 }
 
+// A block's warps down the query rows (wr) and across the keys of each
+// row (wk), and its bytes of shared memory: 4 warps down 64 query rows,
+// or, while the grid would leave SMs idle, down 32 or 16 rows with 2 or 4
+// warps splitting the keys of each row (as many as the stages' shared
+// memory allows).
+struct Plan {
+  int wr, wk;
+  size_t bytes;
+};
+
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const int* qpos,
-             const int* kpos, void* out, float* lse, int B, int S, int Tk,
-             int H, int Hkv, int hd, int hdv, float scale, int causal,
-             int window, cudaStream_t st) {
+Plan plan(int B, int S, int H) {
   using L = Layout<T, D>;
-  static bool smem_set = false;
-  cudaError_t err = attn::allow_smem(flash_tc_kernel<T, D>, &smem_set);
-  if (err != cudaSuccess) return (int)err;
-  // 4 warps: down 64 query rows, or, while the grid would leave SMs idle,
-  // down 32 or 16 rows with 2 or 4 warps splitting the keys of each row
-  // (as many as the stages' shared memory allows)
   int wr = kMaxWarps;
   while (wr > 1 &&
          (long long)((S + 16 * wr - 1) / (16 * wr)) * H * B < kSms)
@@ -858,7 +883,54 @@ int launch_d(const void* q, const void* k, const void* v, const int* qpos,
   const size_t tile = L::kStage * sizeof(T) + L::BN * sizeof(int);
   while (wk > 1 && kStages * wk * tile > attn::kMaxSmem) wk /= 2;
   const size_t merge = (size_t)wr * wk * 16 * (D + 2) * sizeof(float);
-  const size_t bytes = std::max(kStages * wk * tile, wk > 1 ? merge : 0);
+  return {wr, wk, std::max(kStages * wk * tile, wk > 1 ? merge : 0)};
+}
+
+template <typename T, int D>
+int resources_d(int B, int S, int H, ReproResources* out) {
+  const Plan p = plan<T, D>(B, S, H);
+  return repro_resources(&flash_tc_kernel<T, D>, 32 * p.wr * p.wk, p.bytes,
+                         1, out);
+}
+
+// The plan as (route 1, query rows 16 wr, wk, bytes) for
+// repro_flash_attention_plan.
+template <typename T, int D>
+void plan_record_d(int B, int S, int H, long long* out) {
+  const Plan p = plan<T, D>(B, S, H);
+  out[0] = 1;
+  out[1] = 16 * p.wr;
+  out[2] = p.wk;
+  out[3] = (long long)p.bytes;
+}
+
+template <typename T>
+void plan_record(int B, int S, int H, int hd, int hdv, long long* out) {
+  const int d = max(hd, hdv);
+  if (d <= 32) plan_record_d<T, 32>(B, S, H, out);
+  else if (d <= 64) plan_record_d<T, 64>(B, S, H, out);
+  else plan_record_d<T, 128>(B, S, H, out);
+}
+
+template <typename T>
+int resources(int B, int S, int H, int hd, int hdv, ReproResources* out) {
+  const int d = max(hd, hdv);
+  return d <= 32 ? resources_d<T, 32>(B, S, H, out)
+         : d <= 64 ? resources_d<T, 64>(B, S, H, out)
+                   : resources_d<T, 128>(B, S, H, out);
+}
+
+template <typename T, int D>
+int launch_d(const void* q, const void* k, const void* v, const int* qpos,
+             const int* kpos, void* out, float* lse, int B, int S, int Tk,
+             int H, int Hkv, int hd, int hdv, float scale, int causal,
+             int window, cudaStream_t st) {
+  static bool smem_set = false;
+  cudaError_t err = attn::allow_smem(flash_tc_kernel<T, D>, &smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = plan<T, D>(B, S, H);
+  const int wr = p.wr, wk = p.wk;
+  const size_t bytes = p.bytes;
   const dim3 grid((S + 16 * wr - 1) / (16 * wr), H, B);
   flash_tc_kernel<T, D><<<grid, 32 * wr * wk, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -873,10 +945,14 @@ constexpr int kMaxTcDim = 128;
 // The tensor-core route takes the shape: head dims multiples of 16 up to
 // 128 (the register budget of the q, score and acc fragments), and 16-byte
 // aligned operands for cp.async.
+inline bool takes_dims(int hd, int hdv) {
+  return hd % 16 == 0 && hdv % 16 == 0 && hd <= kMaxTcDim &&
+         hdv <= kMaxTcDim;
+}
+
 inline bool takes(const void* q, const void* k, const void* v,
                   const void* out, int hd, int hdv) {
-  return hd % 16 == 0 && hdv % 16 == 0 && hd <= kMaxTcDim &&
-         hdv <= kMaxTcDim && attn::aligned16({q, k, v, out});
+  return takes_dims(hd, hdv) && attn::aligned16({q, k, v, out});
 }
 
 template <typename T>
@@ -939,4 +1015,38 @@ REPRO_API int repro_flash_attention(const void* q, const void* k,
                                  hd, hdv, scale, causal, window, st);
   return launch<float>(q, k, v, qpos, kpos, out, lse, B, S, Tk, H, Hkv, hd, hdv,
                        scale, causal, window, st);
+}
+
+// The launch plan a call of (B, S, H, hd, hdv) in fp32 (bf16 = 0) or bf16
+// takes, from the plan functions the launch itself calls (host only):
+// out[0] the route (0 SIMT, 1 tensor cores), out[1] the query rows a
+// block (R; 16 x the warps down the rows), out[2] the SIMT route's key
+// rows a tile (BK, 0 when none fits) or the warps across the keys,
+// out[3] the block's dynamic shared memory in bytes.
+REPRO_API int repro_flash_attention_plan(int B, int S, int H, int hd,
+                                         int hdv, int bf16, long long* out) {
+  if (hd > attn::kMaxHeadDim || hdv > attn::kMaxHeadDim || S < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!tc::takes_dims(hd, hdv))
+    simt::plan_record(S, hd, hdv, out);
+  else if (bf16)
+    tc::plan_record<__nv_bfloat16>(B, S, H, hd, hdv, out);
+  else
+    tc::plan_record<float>(B, S, H, hd, hdv, out);
+  return 0;
+}
+
+// The resources of the kernel a call of (B, S, H, hd, hdv) in fp32 (bf16 =
+// 0) or bf16 launches, with 16-byte aligned operands (as the caching
+// allocator gives): the tensor-core route's block or the SIMT route's.
+REPRO_API int repro_flash_attention_resources(int B, int S, int H, int hd,
+                                              int hdv, int bf16,
+                                              ReproResources* out) {
+  if (hd > attn::kMaxHeadDim || hdv > attn::kMaxHeadDim || S < 1)
+    return (int)cudaErrorInvalidValue;
+  if (tc::takes_dims(hd, hdv))
+    return bf16 ? tc::resources<__nv_bfloat16>(B, S, H, hd, hdv, out)
+                : tc::resources<float>(B, S, H, hd, hdv, out);
+  return bf16 ? simt::resources<__nv_bfloat16>(S, hd, hdv, out)
+              : simt::resources<float>(S, hd, hdv, out);
 }

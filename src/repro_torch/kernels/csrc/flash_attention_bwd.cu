@@ -1225,6 +1225,30 @@ int launch_dw(const float* q, const float* k, const float* v,
 // halves, and the card holds twice the warps.
 constexpr int kSplitTiles = 4;
 
+inline bool splits(int S, int T) {
+  return std::max(S, T) > kSplitTiles * kStep;
+}
+
+// The resources of kernel 0 (dq), 1 (dk, dv) or 2 (the group sum) at one D
+// and WK, as launch_dw launches them.
+template <int D, int WK>
+int resources_dw(int kernel, ReproResources* out) {
+  constexpr size_t kSmem = Layout<D>::smem(WK);
+  if (kernel == 0)
+    return repro_resources(&tc_dq_kernel<D, WK>, kThreads * WK, kSmem, 1,
+                           out);
+  if (kernel == 1)
+    return repro_resources(&tc_dkdv_kernel<D, WK>, kThreads * WK, kSmem, 1,
+                           out);
+  return repro_resources(&tc_group_sum_kernel, kSumThreads, 0, 1, out);
+}
+
+template <int D>
+int resources_d(int S, int T, int kernel, ReproResources* out) {
+  return splits(S, T) ? resources_dw<D, 2>(kernel, out)
+                      : resources_dw<D, 1>(kernel, out);
+}
+
 template <int D>
 int launch_d(const float* q, const float* k, const float* v,
              const float* out, const float* dout, const int* qpos,
@@ -1232,7 +1256,7 @@ int launch_d(const float* q, const float* k, const float* v,
              const float* lse, float* drows, float* dk_part, float* dv_part,
              int B, int S, int T, int H, int Hkv, int hd, int hdv,
              float scale, int causal, int window, cudaStream_t st) {
-  const bool split = std::max(S, T) > kSplitTiles * kStep;
+  const bool split = splits(S, T);
   return (split ? launch_dw<D, 2> : launch_dw<D, 1>)(
       q, k, v, out, dout, qpos, kpos, dq, dk, dv, lse, drows, dk_part,
       dv_part, B, S, T, H, Hkv, hd, hdv, scale, causal, window, st);
@@ -1299,5 +1323,31 @@ REPRO_API int repro_flash_attention_bwd(
   }
   return simt::launch(q, k, v, out, dout, qpos, kpos, dq, dk, dv, lse, drows,
                       B, S, T, H, Hkv, hd, hdv, scale, causal, window, st);
+}
+
+// The resources of kernel 0 (dq), 1 (dk, dv) or 2 (the tensor-core route's
+// sum over a GQA group's heads) of a call at S queries, T keys and head
+// dims hd, hdv, with 16-byte aligned operands (as the caching allocator
+// gives): the route the call takes, as repro_flash_attention_bwd picks it.
+REPRO_API int repro_flash_attention_bwd_resources(int S, int T, int hd,
+                                                  int hdv, int kernel,
+                                                  ReproResources* out) {
+  using namespace attn_bwd;
+  if (hd > simt::kMaxDim || hdv > simt::kMaxDim || hd < 1 || hdv < 1 ||
+      S < 1 || T < 1 || kernel < 0 || kernel > 2)
+    return (int)cudaErrorInvalidValue;
+  if (hd % 16 == 0 && hdv % 16 == 0) {
+    const int d = max(hd, hdv);
+    return d <= 32 ? tc::resources_d<32>(S, T, kernel, out)
+           : d <= 64 ? tc::resources_d<64>(S, T, kernel, out)
+                     : tc::resources_d<128>(S, T, kernel, out);
+  }
+  if (kernel == 0)
+    return repro_resources(&simt::attn_bwd_dq_kernel, simt::kThreads,
+                           simt::dq_smem(hd, hdv), 1, out);
+  if (kernel == 1)
+    return repro_resources(&simt::attn_bwd_dkdv_kernel, simt::kThreads,
+                           simt::dkdv_smem(hd, hdv), 1, out);
+  return (int)cudaErrorInvalidValue;
 }
 

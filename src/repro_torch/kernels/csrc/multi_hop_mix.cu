@@ -160,16 +160,15 @@ REPRO_API int repro_multi_hop_mix(const float* const* xs, float* const* outs,
   return 0;
 }
 
-// The register kernel of an n-node ring (n <= kMaxRegRows): its registers
-// per thread and how many blocks of `threads` one SM holds at once.
-REPRO_API int repro_multi_hop_mix_resources(int n, int threads, int* regs,
-                                            int* blocks_per_sm) {
-  const void* fn = reg_kernel<1>(n);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  *regs = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
-                                                            threads, 0);
+// The resources of the kernel an n-node ring takes at block width
+// `threads` (multi_hop_mix.py's block_width(n)): the register kernel for
+// n <= kMaxRegRows, else the shared-memory one with its n * threads floats.
+REPRO_API int repro_multi_hop_mix_resources(int n, int threads,
+                                            ReproResources* out) {
+  if (n < 1 || threads < 32 || threads > 256)
+    return (int)cudaErrorInvalidValue;
+  if (n <= kMaxRegRows)
+    return repro_resources(reg_kernel<1>(n), threads, 0, 1, out);
+  return repro_resources(&ring_hops_smem_kernel, threads,
+                         (size_t)n * threads * sizeof(float), 1, out);
 }

@@ -352,6 +352,22 @@ REPRO_API long long repro_multi_hop_mix_quant_capacity(int n) {
   return blocks;
 }
 
+// The resources of a route's kernel for an n-node ring: route 0 the global
+// route (global_smem(n) bytes), 1 the on-chip route (n <= kMaxRegRows,
+// kRegThreads a block), 2 its one-warp block for a single leaf of at most
+// kTinyThreads columns.
+REPRO_API int repro_multi_hop_mix_quant_resources(int n, int route,
+                                                  ReproResources* out) {
+  if (n < 1 || route < 0 || route > 2) return (int)cudaErrorInvalidValue;
+  if (route == 0)
+    return repro_resources(&quant_hops_kernel, kThreads,
+                           (size_t)global_smem(n), 1, out);
+  const void* fn = reg_kernel<1>(n, route == 2);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return repro_resources(fn, route == 2 ? kTinyThreads : kRegThreads, 0, 1,
+                         out);
+}
+
 // qs, ss, outs, scratch, fs: count (1 <= count <= kMaxLeaves) leaves, leaf j
 // an int8 (n, fs[j]) payload at qs[j] with (n,) fp32 scales at ss[j], its
 // fp32 (n, fs[j]) output at outs[j]; scratch[j], an (n, fs[j]) fp32 buffer,

@@ -349,3 +349,20 @@ REPRO_API int repro_paged_decode(const void* q, const void* kpages,
                        tickets, S, M, ps, Hkv, G, hd, hdv, scale, window,
                        chunk, n_chunks, st);
 }
+
+// The resources of the kernel at G query heads a kv head, head dims hd and
+// hdv and n_chunks chunks a slot (paged_decode.py's split_plan), fp32
+// (bf16 = 0) or bf16.
+REPRO_API int repro_paged_decode_resources(int G, int hd, int hdv,
+                                           int n_chunks, int bf16,
+                                           ReproResources* out) {
+  if (hd > attn::kMaxHeadDim || hdv > attn::kMaxHeadDim || n_chunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int parts = n_chunks * kWarps;
+  if (bf16)
+    return repro_resources(
+        &paged_split_kernel<__nv_bfloat16>, kThreads,
+        smem_bytes<__nv_bfloat16>(G, hd, hdv, parts), 1, out);
+  return repro_resources(&paged_split_kernel<float>, kThreads,
+                         smem_bytes<float>(G, hd, hdv, parts), 1, out);
+}

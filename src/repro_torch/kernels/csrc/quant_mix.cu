@@ -154,3 +154,8 @@ REPRO_API int repro_quant_mix(const int8_t* const* qs, const float* const* ss,
   REPRO_LAUNCH_CHECK();
   return 0;
 }
+
+// The resources of the kernel at its one launch configuration.
+REPRO_API int repro_quant_mix_resources(ReproResources* out) {
+  return repro_resources(&quant_mix_group_kernel, kThreads, 0, 1, out);
+}

@@ -643,48 +643,67 @@ finalize_cluster_kernel(const float* __restrict__ pb,
   cluster.sync();   // no CTA leaves while a peer may still read its panels
 }
 
+// The (r, r) stage's kernel for 1 <= r <= kMaxR and its launch: one block
+// a node of finalize_small_kernel up to kSmallR, else the first Cfg whose
+// padded order covers r, on a cluster of CS CTAs a node.  The launch,
+// repro_fused_retract_cluster and repro_fused_retract_resources all take
+// it from here.
+struct Stage {
+  void (*kernel)(const float*, const float*, float*, float*, int, int);
+  int threads;   // threads a block
+  size_t smem;   // dynamic shared memory a block, bytes
+  int cs;        // CTAs a node: 1 (one block, no cluster) or a cluster
+};
+
 template <class C, class K>
-int launch_cluster(K kernel, const float* pb, const float* pc, float* m1,
-                   float* m2, int batch, int r, int ns_iters,
-                   cudaStream_t st) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(C::CS * batch));
-  cfg.blockDim = dim3(C::kThreads);
-  cfg.dynamicSmemBytes = C::kSmem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C::CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, pb, pc, m1, m2, r, ns_iters);
+Stage cluster_stage(K kernel) {
+  return {kernel, C::kThreads, C::kSmem, C::CS};
+}
+
+Stage stage_for(int r) {
+  if (r <= kSmallR)
+    return {finalize_small_kernel, (r * r + 31) / 32 * 32,
+            6 * (size_t)r * r * sizeof(float), 1};
+  if (r <= Cfg64::RP)
+    return cluster_stage<Cfg64>(finalize_full_kernel<Cfg64>);
+  if (r <= Cfg128::RP)
+    return cluster_stage<Cfg128>(finalize_cluster_kernel<Cfg128>);
+  return cluster_stage<Cfg256>(finalize_cluster_kernel<Cfg256>);
+}
+
+// Each cluster kernel opted in to its shared memory, once a process.
+int allow_stage_smem() {
+  static const int err = [] {
+    for (int r : {Cfg64::RP, Cfg128::RP, Cfg256::RP}) {
+      const Stage s = stage_for(r);
+      const cudaError_t e = cudaFuncSetAttribute(
+          s.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)s.smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+  }();
+  return err;
 }
 
 int launch_finalize(const float* pb, const float* pc, float* m1, float* m2,
                     int batch, int r, int ns_iters, cudaStream_t st) {
-  if (r <= kSmallR) {
-    const int threads = (r * r + 31) / 32 * 32;
-    finalize_small_kernel<<<batch, threads, 6 * r * r * sizeof(float), st>>>(
-        pb, pc, m1, m2, r, ns_iters);
-    return (int)cudaGetLastError();
-  }
-  if (r <= Cfg64::RP)
-    return launch_cluster<Cfg64>(finalize_full_kernel<Cfg64>, pb, pc, m1, m2,
-                                 batch, r, ns_iters, st);
-  if (r <= Cfg128::RP)
-    return launch_cluster<Cfg128>(finalize_cluster_kernel<Cfg128>, pb, pc, m1,
-                                  m2, batch, r, ns_iters, st);
-  return launch_cluster<Cfg256>(finalize_cluster_kernel<Cfg256>, pb, pc, m1,
-                                m2, batch, r, ns_iters, st);
+  const Stage s = stage_for(r);
+  if (s.cs > 1)
+    if (const int err = allow_stage_smem()) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(s.cs * batch));
+  cfg.blockDim = dim3((unsigned)s.threads);
+  cfg.dynamicSmemBytes = s.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = s.cs > 1 ? 1 : 0;   // one block a node: no cluster
+  return (int)cudaLaunchKernelEx(&cfg, s.kernel, pb, pc, m1, m2, r, ns_iters);
 }
 
 // ---------------------------------------------------------------------------
@@ -882,18 +901,24 @@ inline bool aligned(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
+// Bytes of shared memory an ns_mm_kernel block asks: two stages of an A
+// and a B tile.
+constexpr int kMmBytes = 2 *
+                          (tall::kTile * tall::kLdA + tall::kBK * tall::kLd) *
+                          (int)sizeof(float);
+static_assert(kMmBytes <= 48 * 1024,
+              "ns_mm_kernel: static shared-memory limit");
+
 // One ns_mm_kernel launch of one or two products.
 inline int mm(Mm a, Mm b, int jobs, int batch, int r, cudaStream_t st) {
   using namespace tall;
-  constexpr int kBytes = 2 * (kTile * kLdA + kBK * kLd) * (int)sizeof(float);
-  static_assert(kBytes <= 48 * 1024, "ns_mm_kernel: static shared-memory limit");
   const int vec = r % 4 == 0 && aligned({a.a, a.b, a.c}) &&
                   (jobs < 2 || aligned({b.a, b.b, b.c}));
   const int T = ceil_div(r, kTile);
   const bool all_sym = a.sym && (jobs < 2 || b.sym);
   const int tiles = all_sym ? T * (T + 1) / 2 : T * T;
   ns_mm_kernel<<<dim3((unsigned)tiles, (unsigned)batch, (unsigned)jobs),
-                 kThreads, kBytes, st>>>(MmPair{{a, b}}, r, vec);
+                 kThreads, kMmBytes, st>>>(MmPair{{a, b}}, r, vec);
   return (int)cudaGetLastError();
 }
 
@@ -945,9 +970,42 @@ int finalize(const float* pb, const float* pc, float* m1, float* m2,
 REPRO_API int repro_fused_retract_cluster(int r) {
   if (r < 1) return -1;
   if (r > kMaxR) return 0;
-  if (r <= kSmallR) return 1;
-  return r <= Cfg64::RP ? Cfg64::CS : r <= Cfg128::RP ? Cfg128::CS
-                                                      : Cfg256::CS;
+  return stage_for(r).cs;
+}
+
+// The resources of one kernel of a call on (batch, d, r) operands: 0 the
+// Gram (tall.cuh, B and C), 1 the apply, 2 the (r, r) stage up to kMaxR
+// (one block a node for r <= kSmallR, else a cluster); above kMaxR the
+// stage's kernels over global memory: 3 ns_mm_kernel, 4 ns_sym_kernel,
+// 5 ns_form_a_kernel, 6 ns_scale_kernel, 7 ns_finish_kernel.
+REPRO_API int repro_fused_retract_resources(int batch, int d, int r,
+                                            int kernel,
+                                            ReproResources* out) {
+  if (r < 1 || d < 1 || batch < 1 || kernel < 0 || kernel > 7 ||
+      (kernel == 2 && r > kMaxR) || (kernel > 2 && r <= kMaxR))
+    return (int)cudaErrorInvalidValue;
+  switch (kernel) {
+    case 0:
+      return tall::gram_resources<tall::kGramTwo>(batch, d, r, out);
+    case 1:
+      return tall::apply_resources<tall::kApplyRetract>(out);
+    case 2: {
+      const Stage s = stage_for(r);
+      return repro_resources(s.kernel, s.threads, s.smem, s.cs, out);
+    }
+    case 3:
+      return repro_resources(&glob::ns_mm_kernel, tall::kThreads,
+                             glob::kMmBytes, 1, out);
+    case 4:
+      return repro_resources(&glob::ns_sym_kernel, glob::kEw, 0, 1, out);
+    case 5:
+      return repro_resources(&glob::ns_form_a_kernel, 32 * glob::kRowWarps,
+                             0, 1, out);
+    case 6:
+      return repro_resources(&glob::ns_scale_kernel, glob::kEw, 0, 1, out);
+    default:
+      return repro_resources(&glob::ns_finish_kernel, glob::kEw, 0, 1, out);
+  }
 }
 
 // Floats of scratch ``ws`` a call needs (0 up to kMaxR).

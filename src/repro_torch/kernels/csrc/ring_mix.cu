@@ -92,3 +92,8 @@ REPRO_API int repro_ring_mix(const float* const* xs, float* const* outs,
   REPRO_LAUNCH_CHECK();
   return 0;
 }
+
+// The resources of the kernel at its one launch configuration.
+REPRO_API int repro_ring_mix_resources(ReproResources* out) {
+  return repro_resources(&ring_mix_group_kernel, kThreads, 0, 1, out);
+}

@@ -336,6 +336,27 @@ REPRO_API int repro_stiefel_project_leaves(const float* const* xs,
                  : launch_cluster<8>(grp, clusters, smem, st);
 }
 
+// The resources of one kernel for a (batch, d, r) leaf: 0 the on-chip
+// route's cluster kernel (a leaf with a nonzero
+// repro_stiefel_project_cluster), 1 the streaming route's Gram (tall.cuh,
+// sym(x^T g)), 2 its apply.
+REPRO_API int repro_stiefel_project_resources(int batch, int d, int r,
+                                              int kernel,
+                                              ReproResources* out) {
+  if (batch < 1 || d < 1 || r < 1 || kernel < 0 || kernel > 2)
+    return (int)cudaErrorInvalidValue;
+  if (kernel == 1)
+    return tall::gram_resources<tall::kGramSym>(batch, d, r, out);
+  if (kernel == 2) return tall::apply_resources<tall::kApplyProject>(out);
+  const int cs = onchip_cluster(d, r);
+  if (cs == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = layout(d, r, cs).total * sizeof(float);
+  return cs == 4 ? repro_resources(&project_cluster_kernel<4>, kThreads,
+                                   smem, 4, out)
+                 : repro_resources(&project_cluster_kernel<8>, kThreads,
+                                   smem, 8, out);
+}
+
 // The streaming route for one (batch, d, r) leaf: s (batch, r, r) receives
 // sym(x^T g).  Two launches.
 REPRO_API int repro_stiefel_project_stream(const float* x, const float* g,

@@ -472,5 +472,22 @@ inline int launch_apply(const float* x, const float* g, const float* m1,
                                  d, r, vec);
 }
 
+// The resources of the Gram launch of (batch, d, r) operands, with the
+// cluster launch_gram picks for them.
+template <int MODE>
+inline int gram_resources(int batch, int d, int r, ReproResources* out) {
+  const int T = ceil_div(r, kTile);
+  const int jobs = MODE == kGramSym ? T * (T + 1) / 2 : T * T;
+  return repro_resources(&gram_kernel<MODE>, kThreads, kGramSmem,
+                         gram_cluster(jobs, batch, d), out);
+}
+
+// The resources of the apply launch (one configuration for every shape).
+template <int MODE>
+inline int apply_resources(ReproResources* out) {
+  return repro_resources(&apply_kernel<MODE>, kThreads,
+                         2 * apply_stage<MODE>() * sizeof(float), 1, out);
+}
+
 }  // namespace
 }  // namespace tall

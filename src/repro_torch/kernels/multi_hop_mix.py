@@ -61,17 +61,13 @@ def launch(xs: list[torch.Tensor], hops: int, w_self: float,
     return outs
 
 
-def resources(n: int) -> tuple[int, int]:
-    """(registers per thread, resident blocks per SM) of the register
-    kernel of an ``n``-node ring at its block width, as the card reports
-    them (``cudaFuncGetAttributes``, the occupancy calculator)."""
-    lib = build.library("multi_hop_mix")
-    fn = lib.repro_multi_hop_mix_resources
-    fn.restype = ctypes.c_int
-    regs, blocks = ctypes.c_int(), ctypes.c_int()
-    build.check("multi_hop_mix", fn(n, block_width(n), ctypes.byref(regs),
-                                    ctypes.byref(blocks)))
-    return regs.value, blocks.value
+def resources(n: int) -> dict:
+    """The resources of the kernel an ``n``-node ring takes at its block
+    width (``build.resources``: registers, shared memory, resident blocks
+    an SM), as the card reports them (``cudaFuncGetAttributes``, the
+    occupancy calculator)."""
+    return build.resources("multi_hop_mix", "repro_multi_hop_mix_resources",
+                           n, block_width(n))
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@ tests pass ``cpu``).  ``--arch`` takes every ported architecture:
 smollm-135m, granite-3-2b, granite-3-8b, gemma3-27b, musicgen-large (4
 codebook streams), granite-moe-1b-a400m and deepseek-v2-236b (MoE),
 llama-3.2-vision-11b (cross-attention onto a stubbed vision frontend)
-and zamba2-2.7b (Mamba2 blocks beside attention; its Mamba2 leaves are
-Euclidean, its attention's wq, wk, wv and wo on the Stiefel manifold).
+zamba2-2.7b (Mamba2 blocks beside attention; its Mamba2 leaves are
+Euclidean, its attention's wq, wk, wv and wo on the Stiefel manifold)
+and xlstm-1.3b (mLSTM and sLSTM blocks; the mLSTM's wq, wk, wv and
+w_down on the Stiefel manifold, the rest Euclidean).
 TF32 is off for matmuls and cuDNN: the reference is fp32.  Initial weights
 are drawn with a ``torch.Generator`` seeded with ``--seed`` on the device
 (the JAX CLI draws with ``jax.random``, which the port cannot reproduce);
@@ -29,6 +31,7 @@ last evaluation.
         --nodes 2 --telemetry --checkpoint-dir /tmp/ckpt --checkpoint-every 3
     python -m repro_torch.launch.train --arch llama-3.2-vision-11b --smoke
     python -m repro_torch.launch.train --arch zamba2-2.7b --smoke
+    python -m repro_torch.launch.train --arch xlstm-1.3b --smoke
     python -m repro_torch.launch.train --reference [--device cpu]
     python -m repro_torch.launch.train --reference \
         --reference-arch granite-moe-1b-a400m
@@ -40,8 +43,8 @@ lm``: full-width smollm-135m cut in depth, from
 ``convert.lm_params_from_seed``), or with ``--reference-arch`` one of
 ``tests/data/lm_models_reference.json`` (``tests/_reference_curves.py
 lm_models``: granite-moe-1b-a400m and musicgen-large at their published
-widths cut to 2 layers, deepseek-v2-236b, llama-3.2-vision-11b and
-zamba2-2.7b at ``SMOKE``, the frontend's embeddings from
+widths cut to 2 layers, deepseek-v2-236b, llama-3.2-vision-11b,
+zamba2-2.7b and xlstm-1.3b at ``SMOKE``, the frontend's embeddings from
 ``convert.lm_frontend_from_seed``).
 """
 from __future__ import annotations

@@ -60,7 +60,7 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> dict:
 
 
 def rmsnorm(params: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * params["scale"]
 

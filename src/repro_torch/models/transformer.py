@@ -1,8 +1,10 @@
 """Model assembly of the port (``src/repro/models/transformer.py``): the
 dense ``"attn"`` block (attention + SwiGLU), the ``"moe_attn"`` block
-(attention + the routed experts of ``models/moe.py``) and the ``"mamba"``
-block (the Mamba2 mixer of ``models/ssm.py``, no MLP) in stages of stacked
-repeats, with GQA or MLA attention (``models/attention.py``), an optional
+(attention + the routed experts of ``models/moe.py``), the ``"mamba"``
+block (the Mamba2 mixer of ``models/ssm.py``, no MLP) and the xLSTM
+blocks ``"mlstm"`` and ``"slstm"`` (the cells of ``models/xlstm.py``,
+which carry their own projections) in stages of stacked repeats, with
+GQA or MLA attention (``models/attention.py``), an optional
 cross-attention sublayer onto a stubbed modality frontend (Llama-3.2
 Vision: precomputed embeddings, projected by ``frontend_proj``), and one
 token stream or ``n_codebooks`` parallel ones (MusicGen: the codebooks'
@@ -15,7 +17,9 @@ Entry points, plain functions over dicts of tensors:
   * ``decode_step``  - one new token against per-layer caches: contiguous
                        ``{"k", "v", "pos"}`` caches (MLA: the compressed
                        ``{"c_kv", "k_rope", "pos"}``; Mamba2: the
-                       ``{"ssm", "conv"}`` state), or the paged serving
+                       ``{"ssm", "conv"}`` state; mLSTM ``{"C", "n",
+                       "m", "conv"}``; sLSTM ``{"state": (c, n, h,
+                       m)}``), or the paged serving
                        path's ``{"k_pages", "v_pages"}`` pools, with
                        ``position`` then ``(position, block_table)``;
   * ``init_params`` / ``init_cache`` - constructors;
@@ -30,8 +34,7 @@ does, so that ``repro_torch.convert`` is a plain copy.  The repeats run as
 a Python loop over that axis (``lax.scan`` in the JAX package); decode
 caches are views of the stacked tensors and are written in place.  The MoE
 router's auxiliary loss is summed over blocks and stages, as in the JAX
-package.  The xLSTM block kinds ``mlstm`` and ``slstm`` are not ported
-yet.
+package.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from repro_torch.configs.base import BlockSpec, ModelConfig, Stage
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (dense_init, draw_device, embed_init,
                                        rmsnorm, rmsnorm_init, swiglu,
                                        swiglu_init)
@@ -49,11 +53,25 @@ from repro_torch.tree import tree_map
 Tensor = torch.Tensor
 
 
+_KINDS = ("attn", "moe_attn", "mamba", "mlstm", "slstm")
+# the recurrent blocks: one mixer after ln1, a fixed-size decode state
+_MIXERS = {"mamba": (ssm_mod.init_mamba, ssm_mod.mamba_prefill,
+                     ssm_mod.mamba_decode),
+           "mlstm": (xlstm_mod.init_mlstm, xlstm_mod.mlstm_prefill,
+                     xlstm_mod.mlstm_decode),
+           "slstm": (xlstm_mod.init_slstm, xlstm_mod.slstm_prefill,
+                     xlstm_mod.slstm_decode)}
+
+
 def _check_block(spec: BlockSpec) -> None:
-    """Refuse what the port does not run yet: the xLSTM block kinds."""
-    if spec.kind not in ("attn", "moe_attn", "mamba"):
-        raise NotImplementedError(f"block kind {spec.kind!r} is not ported "
-                                  f"yet")
+    """Refuse a block kind that is not one of the JAX package's."""
+    if spec.kind not in _KINDS:
+        raise ValueError(f"unknown block kind {spec.kind!r}; known: "
+                         f"{_KINDS}")
+
+
+def _mixer_spec(spec: BlockSpec):
+    return spec.ssm if spec.kind == "mamba" else spec.xlstm
 
 
 # ---------------------------------------------------------------------------
@@ -65,9 +83,10 @@ def init_block(generator: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                dtype=torch.float32) -> dict:
     _check_block(spec)
     dev = draw_device(generator)
-    if spec.kind == "mamba":
+    if spec.kind in _MIXERS:
+        init = _MIXERS[spec.kind][0]
         return {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
-                "mamba": ssm_mod.init_mamba(generator, cfg, spec.ssm, dtype)}
+                spec.kind: init(generator, cfg, _mixer_spec(spec), dtype)}
     p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
          "attn": attn_mod.init_attention(generator, cfg, spec.attn, dtype)}
     if spec.attn.cross_attn:
@@ -146,7 +165,8 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_seq_len: int,
                dtype=torch.float32, device=None) -> dict:
     """Empty contiguous caches (positions -1), stacked per stage: GQA
     ``{k, v, pos}``, MLA the compressed ``{c_kv, k_rope, pos}``, Mamba2
-    the zero state ``{ssm, conv}``."""
+    the zero state ``{ssm, conv}``, mLSTM ``{C, n, m, conv}`` and sLSTM
+    ``{state: (c, n, h, m)}`` at their empty states."""
     caches = {}
     for i, st in enumerate(cfg.stages):
         lead = (st.repeat,) if st.repeat > 1 else ()
@@ -156,6 +176,14 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_seq_len: int,
             if sp.kind == "mamba":
                 cell[f"b{j}"] = ssm_mod.init_mamba_cache(
                     cfg, sp.ssm, bsz, dtype, device, lead)
+                continue
+            if sp.kind == "mlstm":
+                cell[f"b{j}"] = xlstm_mod.init_mlstm_cache(
+                    cfg, sp.xlstm, bsz, dtype, device, lead)
+                continue
+            if sp.kind == "slstm":
+                cell[f"b{j}"] = xlstm_mod.init_slstm_cache(cfg, bsz, device,
+                                                           lead, dtype)
                 continue
             a = sp.attn
             cl = attn_mod.attn_cache_len(a, cache_seq_len)
@@ -190,14 +218,14 @@ def apply_block(params: dict, cfg: ModelConfig, spec: BlockSpec, x: Tensor,
     cross-attention sublayer; without them it is skipped."""
     _check_block(spec)
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if spec.kind == "mamba":
+    if spec.kind in _MIXERS:
+        _, prefill, decode = _MIXERS[spec.kind]
+        mixer = _mixer_spec(spec)
         if mode == "decode":
-            y, cache = ssm_mod.mamba_decode(params["mamba"], h, cfg,
-                                            spec.ssm, cache)
+            y, cache = decode(params[spec.kind], h, cfg, mixer, cache)
         else:
-            y, cache = ssm_mod.mamba_prefill(params["mamba"], h, cfg,
-                                             spec.ssm,
-                                             make_cache=(mode == "prefill"))
+            y, cache = prefill(params[spec.kind], h, cfg, mixer,
+                               make_cache=(mode == "prefill"))
         return x + y, 0.0, cache
     a = spec.attn
     if mode == "decode":

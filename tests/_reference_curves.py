@@ -1034,7 +1034,8 @@ LM_MODELS = {
                         ("musicgen-large", False),
                         ("deepseek-v2-236b", True),
                         ("llama-3.2-vision-11b", True),
-                        ("zamba2-2.7b", True))}
+                        ("zamba2-2.7b", True),
+                        ("xlstm-1.3b", True))}
 # The port's largest gap from each recorded run on the CPU over the gated
 # points, as LM_CPU_GAP (`python -m repro_torch.launch.train --reference
 # --reference-arch <arch> --device cpu`; where a quantity has no gated
@@ -1060,6 +1061,10 @@ LM_MODELS_CPU_GAP = {
         "steps": {"loss": 1.634e-07, "grad_norm_x": 2.124e-07,
                   "consensus_x": 3.301e-07},
         "evals": {"M_t": 1.068e-07, "stiefel_residual": 4.584e-08}},
+    "xlstm-1.3b": {
+        "steps": {"loss": 6.539e-07, "grad_norm_x": 3.611e-06,
+                  "consensus_x": 1.569e-06},
+        "evals": {"M_t": 2.422e-05, "stiefel_residual": 3.102e-07}},
 }
 
 

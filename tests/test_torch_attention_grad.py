@@ -33,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 

@@ -44,6 +44,7 @@ from repro_torch.core.metric import convergence_metric  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.fair import COMM_PRESETS, prepare  # noqa: E402
 from repro_torch.objectives import fair  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 N, HW, FC = 4, 8, 16
 Q = 4          # GT-SRVR's anchor period here: anchors at t = 0, 4 and 8

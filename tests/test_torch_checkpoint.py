@@ -25,6 +25,7 @@ from repro_torch.comms.spec import CommSpec
 from repro_torch.launch.fair import prepare
 from repro_torch.obs import Telemetry, unpack
 from repro_torch.tree import tree_flatten_with_path
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 def _leaves(tree):

@@ -33,6 +33,7 @@ from repro_torch.launch.steps import (TrainSpec, build_trainer,  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.obs.wire import pack  # noqa: E402
 from repro_torch.tree import tree_flatten_with_path  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 N_NODES, BATCH, SEQ = 2, 2, 16

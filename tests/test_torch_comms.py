@@ -45,6 +45,7 @@ from repro_torch.comms.compress import DrawKey  # noqa: E402
 from repro_torch.comms.layer import CommEngine, make_mixer  # noqa: E402
 from repro_torch.comms.spec import CommSpec  # noqa: E402
 from repro_torch.core.gossip import GossipSpec  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 _TO_OIHW = (0, 4, 3, 1, 2)
 _TO_HWIO = (0, 3, 4, 2, 1)

@@ -838,3 +838,27 @@ def test_cuda_flash_attention_backward_refuses_bf16(cuda):
     lse = torch.zeros((1, 2, 8), device=cuda)
     with pytest.raises(TypeError, match="float32 only"):
         ops.flash_attention_backward(x, x, x, x, x, lse=lse)
+
+
+def test_cuda_kernel_budgets_hold(cuda):
+    """The kernel checker's Hopper budget pass: every kernel of the nine
+    CUDA libraries at the launch configurations the wrappers choose
+    (``kernel_check.budget_cases``) within 255 registers a thread, 65,536
+    a block, the card's opt-in shared memory a block, and at least one
+    resident block (or cluster); the attention forward's plans, read from
+    ``flash_attention.cu``, cover every query row within that shared
+    memory; the CLI on the card exits 0."""
+    from repro_torch.analysis import kernel_check
+    from repro_torch.analysis.__main__ import main
+
+    plans = kernel_check.attention_plans()
+    assert {p["route"] for p in plans} == {"simt", "tensor cores"}
+    assert kernel_check.attention_tiling_findings(
+        plans, kernel_check.smem_limit()) == []
+    records = kernel_check.budget_records()
+    assert {r["kernel"] for r in records} == \
+        set(ops.launch_counts()) | set(ops.backward_launch_counts())
+    assert all(r["regs"] > 0 and r["threads"] > 0 for r in records)
+    assert kernel_check.budget_findings(
+        records, kernel_check.smem_limit()) == []
+    assert main([]) == 0

@@ -34,6 +34,7 @@ from repro_torch.core.gossip import GossipSpec  # noqa: E402
 from repro_torch.core.metric import convergence_metric  # noqa: E402
 from repro_torch.launch import dro  # noqa: E402
 from repro_torch.objectives import fair  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 N, HW, FC = 4, 8, 16
 J_HYPER = {"dm-hsgd": jb.HSGDHyper(beta=0.05, eta=0.2),

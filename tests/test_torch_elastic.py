@@ -38,6 +38,7 @@ from repro_torch.comms.compress import DrawKey, GeneratorDraws
 from repro_torch.comms.spec import CommSpec
 from repro_torch.core.gossip import GossipSpec
 from repro_torch.launch import elastic as launch
+from _torch_threads import one_thread  # noqa: E402,F401
 
 N, HW, FC = 4, 8, 16
 

@@ -50,6 +50,7 @@ from repro_torch.data.synthetic import ClassificationStream  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.fair import COMM_PRESETS, run_method  # noqa: E402
 from repro_torch.objectives import fair  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 N, HW, FC = 4, 8, 16
 

@@ -34,6 +34,7 @@ from repro_torch.core import manifolds as M  # noqa: E402
 from repro_torch.core.minimax import (MinimaxProblem,  # noqa: E402
                                       project_simplex, validate_manifold)
 from repro_torch.geometry import grassmann as tgr  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 NEW = ("grassmann", "oblique", "sphere")
 SHAPES = [(12, 3), (30, 7), (4, 24, 5), (64, 1)]

@@ -27,6 +27,7 @@ from repro_torch import geometry as G  # noqa: E402
 from repro_torch.core import gossip as tg  # noqa: E402
 from repro_torch.core.minimax import project_simplex  # noqa: E402
 from repro_torch.geometry import stiefel as tst  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 EPS32 = float(np.finfo(np.float32).eps)
 

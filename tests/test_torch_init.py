@@ -14,6 +14,7 @@ from repro_torch import configs
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_flatten_with_path, tree_map
+from _torch_threads import one_thread  # noqa: E402,F401
 
 PORTED = sorted(configs._PORTED)
 

@@ -60,6 +60,7 @@ from repro_torch.comms import compress  # noqa: E402
 from repro_torch.comms.backend import StackedBackend as TStacked  # noqa: E402
 from repro_torch.core.gossip import GossipSpec as TGossip  # noqa: E402
 from repro_torch.kernels import leaves, ops, ref  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 WC, WS = 1.0 / 3.0, 1.0 / 3.0
 EPS32 = float(np.finfo(np.float32).eps)

@@ -52,6 +52,7 @@ from repro_torch.launch.steps import (TrainSpec, build_trainer,  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.objectives import lm  # noqa: E402
 from repro_torch.tree import tree_flatten_with_path  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 N_NODES, BATCH, SEQ, STEPS = 4, 2, 16, 3
@@ -385,7 +386,7 @@ def test_reference_config_keeps_the_published_pattern(arch):
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-large",
                                   "deepseek-v2-236b", "llama-3.2-vision-11b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "xlstm-1.3b"])
 def test_models_reference_gates_every_run(arch):
     """Each recorded run of ``tests/data/lm_models_reference.json`` held
     against itself is within every gate; its settings name the recorded

@@ -24,6 +24,7 @@ import pytest
 jax = pytest.importorskip("jax")
 
 import _torch_lm_parity as lp  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("arch, retraction", [

@@ -27,6 +27,7 @@ from repro_torch.data.synthetic import TokenStream  # noqa: E402
 from repro_torch.launch.steps import (TrainSpec, build_trainer,  # noqa: E402
                                       init_train_state)
 from repro_torch.tree import tree_flatten_with_path  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 BATCH, SEQ, STEPS = 2, 16, 3

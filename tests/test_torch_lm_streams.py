@@ -15,7 +15,12 @@ within 1e-5 (``tests/_torch_lm_parity.py``).
   layers beside global ones);
 * zamba2-2.7b: a Mamba2 block (the chunked SSD scan, 16 tokens in one
   chunk of 32, through ``torch.func.vmap(grad)``; its leaves Euclidean)
-  beside a GQA block whose wq, wk, wv and wo are on the Stiefel manifold.
+  beside a GQA block whose wq, wk, wv and wo are on the Stiefel manifold;
+* xlstm-1.3b: an mLSTM block (the chunked cell, 16 tokens in one chunk of
+  32, ``torch.cummax`` and the masked exponential under
+  ``torch.func.vmap(grad)``; its wq, wk, wv and w_down on the Stiefel
+  manifold) beside an sLSTM block (its recurrence a Python loop over the
+  tokens).
 
 The cases share one file: pytest-xdist's ``loadfile`` queues files by
 their number of tests, so one-test files would run last, as the suite's
@@ -30,11 +35,13 @@ import pytest
 jax = pytest.importorskip("jax")
 
 import _torch_lm_parity as lp  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-11b",
                                   "granite-3-2b", "granite-3-8b",
-                                  "gemma3-27b", "zamba2-2.7b"])
+                                  "gemma3-27b", "zamba2-2.7b",
+                                  "xlstm-1.3b"])
 def test_trainer_matches_the_reference(arch):
     m = lp.check_trainer(arch)
     assert math.isfinite(float(m.loss))

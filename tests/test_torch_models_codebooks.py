@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 
 import _torch_model_parity as mp  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

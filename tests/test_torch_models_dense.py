@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 
 import _torch_model_parity as mp  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ARCHS = ("granite-3-2b", "granite-3-8b", "gemma3-27b")
 

@@ -26,6 +26,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.steps import build_trainer  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

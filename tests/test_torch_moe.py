@@ -25,6 +25,7 @@ from repro.configs import base as jbase  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 B, S = 2, 12

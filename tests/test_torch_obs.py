@@ -43,6 +43,7 @@ from repro_torch.obs import estimates as obs_est
 from repro_torch.obs import events as obs_events
 from repro_torch.obs.telemetry import read_counter_series, summarize_run
 from repro_torch.obs.trace import Trace
+from _torch_threads import one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 D, R, G, N_NODES = 10, 2, 3, 6

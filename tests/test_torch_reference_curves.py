@@ -37,6 +37,7 @@ pytest.importorskip("jax")
 import _reference_curves as rc  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.launch import fair  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ from repro_torch.geometry import GRASSMANN  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import robust_pca as launch  # noqa: E402
 from repro_torch.objectives import robust_pca as rp  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 N, D, R, M, RHO = 4, 12, 2, 10, 0.5
 HYPER = dict(alpha=0.5, beta=0.1, eta=0.3)     # examples/robust_pca.py

@@ -36,6 +36,7 @@ from repro_torch.serve import (ContinuousBatchingScheduler,  # noqa: E402
                                PagedKVSpec, Request, ServeEngine,
                                serve_requests)
 from repro_torch.serve import kv_cache  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 
@@ -61,8 +62,7 @@ def _prompts(lengths, vocab, seed=0):
 
 SERVED = ("smollm-135m", "granite-3-2b", "granite-3-8b", "gemma3-27b",
           "musicgen-large", "granite-moe-1b-a400m", "deepseek-v2-236b",
-          "llama-3.2-vision-11b", "zamba2-2.7b")
-NOT_PORTED = ("xlstm-1.3b",)
+          "llama-3.2-vision-11b", "zamba2-2.7b", "xlstm-1.3b")
 
 
 @pytest.mark.parametrize("arch", SERVED)
@@ -82,7 +82,7 @@ def test_config_copied_value_for_value(smoke_cfg, arch):
         assert st.repeat == jst.repeat
         for b, jb in zip(st.blocks, jst.blocks, strict=True):
             assert (b.kind, b.has_mlp) == (jb.kind, jb.has_mlp)
-            for spec in ("attn", "ssm"):
+            for spec in ("attn", "ssm", "xlstm"):
                 got_spec, want_spec = getattr(b, spec), getattr(jb, spec)
                 assert (got_spec is None) == (want_spec is None)
                 if want_spec is not None:
@@ -99,17 +99,17 @@ def test_config_copied_value_for_value(smoke_cfg, arch):
 def test_registry_refuses_what_is_not_ported():
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     assert {configs.get_config(a).name for a in SERVED} == set(SERVED)
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            configs.get_config(arch)
+    assert set(SERVED) == set(configs.ARCH_IDS)
     with pytest.raises(ValueError, match="unknown"):
         configs.get_config("gpt-17")
     cfg = configs.get_config("smollm-135m", smoke=True)
     gen = torch.Generator().manual_seed(0)
-    mlstm = dataclasses.replace(cfg, stages=configs.uniform_stages(
-        configs.BlockSpec(kind="mlstm"), 2))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.init_params(gen, mlstm)
+    rwkv = dataclasses.replace(cfg, stages=configs.uniform_stages(
+        configs.BlockSpec(kind="rwkv"), 2))
+    with pytest.raises(ValueError, match="unknown block kind 'rwkv'"):
+        T.init_params(gen, rwkv)
+    with pytest.raises(ValueError, match="unknown block kind 'rwkv'"):
+        T.init_cache(rwkv, 1, 8)
     for blk, match in ((configs.BlockSpec(attn=configs.AttnSpec(kind="mla")),
                         "GQA attention blocks only"),
                        (configs.BlockSpec(attn=configs.AttnSpec(
